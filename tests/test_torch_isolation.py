@@ -1,0 +1,44 @@
+"""The port stands alone: importing it pulls in neither JAX nor any module
+of the JAX package, and its sources (and ``chip_smoke.py``) import neither.
+"""
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+pytest.importorskip("torch")
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+MODULES = sorted(
+    ".".join(p.relative_to(ROOT / "src").with_suffix("").parts)
+    .removesuffix(".__init__")
+    for p in PORT.rglob("*.py"))
+
+
+def test_importing_the_port_loads_no_jax():
+    code = (
+        "import importlib, sys\n"
+        f"for m in {MODULES!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'repro'))\n"
+        "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+
+
+_IMPORT = re.compile(r"^\s*(?:from|import)\s+(jax|jaxlib|repro)(?:\.|\s|$)",
+                     re.MULTILINE)
+
+
+@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py"))
+                         + [ROOT / "chip_smoke.py"],
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_sources_import_no_jax(path):
+    assert not _IMPORT.findall(path.read_text())
