@@ -1,11 +1,13 @@
 """Carry-over between the JAX package's arrays and the port's tensors.
 
-The JAX package's gauge fields and sources arrive as numpy complex64
-(``np.asarray(U)``); these helpers check their layout and place them on a
-device, and bring results back.  Layouts are the JAX package's:
+The JAX package's arrays arrive as numpy (``np.asarray(U)``); these
+helpers check their layout and place them on a device, and bring results
+back.  Layouts are the JAX package's:
 
   psi: (X, Y, Z, T, 4, 3) complex64   (half-fields: (X/2, Y, Z, T, 4, 3))
   U:   (4, X, Y, Z, T, 3, 3) complex64
+  HPL: a (n, n) float32; an LU factorization as its packed ``lu`` (n, n)
+       float32 and ``piv`` (n // nb, nb) int32
 """
 from __future__ import annotations
 
@@ -13,6 +15,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.hpl.lu import LUResult
 
 
 def _from_numpy(a, tail: tuple, lead: int, what: str,
@@ -40,6 +43,26 @@ def spinor_from_numpy(psi, device="cuda") -> torch.Tensor:
     """A (X, Y, Z, T, 4, 3) spinor (or compact half-) field as a complex64
     tensor."""
     return _from_numpy(psi, (4, 3), 0, "spinor field", device)
+
+
+def matrix_from_numpy(a, device="cuda") -> torch.Tensor:
+    """A 2-D matrix as a float32 tensor (a copy)."""
+    a = np.array(a, dtype=np.float32, order="C")
+    if a.ndim != 2:
+        raise ValueError(f"a matrix must be 2-D, got shape {a.shape}")
+    return torch.from_numpy(a).to(resolve_device(device))
+
+
+def lu_from_numpy(lu, piv, device="cuda") -> LUResult:
+    """The JAX package's ``LUResult`` arrays as the port's ``LUResult``."""
+    lu_t = matrix_from_numpy(lu, device)
+    piv = np.asarray(piv)
+    n = lu_t.shape[0]
+    if lu_t.shape[1] != n or piv.ndim != 2 or piv.size != n:
+        raise ValueError(f"lu must be (n, n) and piv (n // nb, nb), got "
+                         f"{lu_t.shape} and {piv.shape}")
+    piv_t = torch.from_numpy(piv.astype(np.int32)).to(lu_t.device)
+    return LUResult(lu_t, piv_t, piv.shape[0])
 
 
 def to_numpy(t: torch.Tensor) -> np.ndarray:

@@ -1,0 +1,98 @@
+"""Blocked right-looking LU with partial pivoting and HPL-GPU-style
+lookahead: the counterpart of the JAX package's ``src/repro/hpl/lu.py``,
+computing the same function.
+
+Per block step (HPL-GPU, paper ref [1]):
+  1. panel factorization, column by column with row pivoting;
+  2. the triangular solve for the U block row;
+  3. the trailing-matrix update ``A22 -= L21 @ U12``, which on the card is
+     the hand-written GEMM kernel (``kernels/dgemm``).
+With lookahead, the next panel's columns are updated before the rest of
+the trailing matrix, as two GEMMs.
+
+The JAX version keeps the full n x n matrix and masks the active region,
+because XLA needs static shapes.  This one works on the active windows;
+every term the mask removes is an exact 0 or an unchanged entry, so the
+values are the same.  The factorization reads nothing back to the host.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from repro_torch.kernels.dgemm.ops import dgemm_update_
+
+
+class LUResult(NamedTuple):
+    lu: torch.Tensor         # packed L\U (unit lower L below the diagonal)
+    piv: torch.Tensor        # (n // nb, nb) int32: row swapped at each column
+    n_steps: int
+
+
+def _panel_factor(a: torch.Tensor, k0: int, nb: int, piv: torch.Tensor,
+                  rows: torch.Tensor) -> None:
+    """Factor columns [k0, k0+nb) of ``a`` in place, with partial pivoting
+    over rows >= column and full-row swaps; write the pivot rows to
+    ``piv`` (nb,).  ``rows`` is ``arange(n)`` on ``a``'s device."""
+    one = torch.ones((), dtype=a.dtype, device=a.device)
+    for j in range(nb):
+        col = k0 + j
+        # first maximum of |a[col:, col]|, as an absolute row (a tensor)
+        p = torch.argmax(a[col:, col].abs()) + col
+        piv[j] = p
+        swap = torch.stack((rows[col], p))
+        a.index_copy_(0, swap, a.index_select(0, swap.flip(0)))
+        pivot = a[col, col]
+        a[col + 1:, col].div_(torch.where(pivot.abs() < 1e-30, one, pivot))
+        if j + 1 < nb:
+            a[col + 1:, col + 1:k0 + nb].addr_(
+                a[col + 1:, col], a[col, col + 1:k0 + nb], alpha=-1)
+
+
+def blocked_lu(a: torch.Tensor, nb: int, *, lookahead: int = 1) -> LUResult:
+    """LU-factor a (n, n) matrix in blocks of ``nb``; ``a`` is not
+    modified."""
+    n = a.shape[0]
+    if a.dim() != 2 or a.shape[1] != n:
+        raise ValueError(f"a must be square, got shape {tuple(a.shape)}")
+    if n % nb:
+        raise ValueError("n must be a multiple of the block size")
+    steps = n // nb
+    a = a.clone()
+    piv = torch.empty((steps, nb), dtype=torch.int32, device=a.device)
+    rows = torch.arange(n, device=a.device)
+    for k in range(steps):
+        k0, k1 = k * nb, (k + 1) * nb
+        _panel_factor(a, k0, nb, piv[k], rows)
+        if k1 == n:
+            break
+        a[k0:k1, k1:] = torch.linalg.solve_triangular(
+            a[k0:k1, k0:k1], a[k0:k1, k1:], upper=False, unitriangular=True)
+        l21, u12, a22 = a[k1:, k0:k1], a[k0:k1, k1:], a[k1:, k1:]
+        if lookahead > 0:
+            dgemm_update_(a22[:, :nb], l21, u12[:, :nb])
+            if k1 + nb < n:
+                dgemm_update_(a22[:, nb:], l21, u12[:, nb:])
+        else:
+            dgemm_update_(a22, l21, u12)
+    return LUResult(a, piv, steps)
+
+
+def lu_solve(res: LUResult, b: torch.Tensor, nb: int) -> torch.Tensor:
+    """Solve ``A x = b`` (b of shape (n,) or (n, r)) from the packed LU and
+    its pivots.  ``nb`` is kept for parity with the JAX package; the
+    pivots carry their own shape."""
+    n = b.shape[0]
+    if res.piv.numel() != n:
+        raise ValueError(f"{res.piv.numel()} pivots for {n} rows")
+    # the swaps, applied in order, as one permutation: one read of piv
+    perm = list(range(n))
+    for col, p in enumerate(res.piv.reshape(-1).tolist()):
+        perm[col], perm[p] = perm[p], perm[col]
+    pb = b[torch.tensor(perm, device=b.device)]
+    rhs = pb.unsqueeze(-1) if b.dim() == 1 else pb
+    y = torch.linalg.solve_triangular(res.lu, rhs, upper=False,
+                                      unitriangular=True)
+    x = torch.linalg.solve_triangular(res.lu, y, upper=True)
+    return x.squeeze(-1) if b.dim() == 1 else x
