@@ -30,7 +30,23 @@ Phases (one line each, or a few):
      idle share);
   9. the step-0 update's time beside its bound, its plain version's and
      the library's (``addmm_``; ``torch.matmul`` of the product alone is
-     printed too).
+     printed too);
+ 10. the RMSNorm and SSD-chunk kernels against their plain versions on the
+     card: the JAX sweeps' shapes at their tolerances, and the serve
+     path's shapes (RMSNorm (8192, 1024) bf16 and (8192, 2048) f32; one
+     SSD chunk (4, 256, 32, 64, 128) with bf16 x, B, C as views);
+ 11. the third path: serving mamba2-370m at its published widths
+     (48 layers, seeded random weights): prefill of 4 x 2048 prompt tokens
+     and 64 greedy decode steps through ``make_prefill_step``,
+     ``grow_decode_cache`` and ``make_decode_step``, with exact launch
+     counts; then the model cut to 2 layers, prompt 300 (a ragged last
+     chunk), on the CPU (plain versions) and on the card (kernels), which
+     must pick the same greedy tokens over 8 steps;
+ 12. the new kernels' times beside their bounds, their plain versions'
+     and the library's (``torch.nn.functional.rms_norm``; none computes an
+     SSD chunk); the prefill's time and the decode rate; one prefill and
+     16 decode steps under torch.profiler (the device's busy share, its
+     largest activities, its activities per decode step).
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Any failure raises: the script then
 exits non-zero and prints no result.  It needs a CUDA device and the
@@ -38,6 +54,7 @@ exits non-zero and prints no result.  It needs a CUDA device and the
 """
 from __future__ import annotations
 
+import copy
 import json
 import subprocess
 import sys
@@ -61,6 +78,22 @@ GEMM_RAGGED = (1000, 333, 259)
 HPL_N, HPL_NB, HPL_LOOKAHEAD = 32768, 256, 1
 SMALL_HPL_SEED = 20             # see phase 8
 HPL_PROFILE_N = 8192
+RMS_SOURCE = "src/repro_torch/kernels/rmsnorm/csrc/rmsnorm.cu"
+RMS_REPLACES = "src/repro/kernels/rmsnorm/kernel.py:23"
+SSD_SOURCE = "src/repro_torch/kernels/ssd_chunk/csrc/ssd_chunk.cu"
+SSD_REPLACES = "src/repro/kernels/ssd_chunk/kernel.py:43"
+# tests/test_kernels.py::test_rmsnorm_sweep and
+# tests/test_kernels_extra.py::test_ssd_chunk_sweep
+RMS_SWEEP = [(64, 128), (256, 512), (132, 256)]
+SSD_SWEEP = [(2, 16, 3, 8, 4), (1, 32, 2, 16, 8), (3, 8, 4, 4, 16)]
+ARCH = "mamba2-370m"
+SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 2048, 64
+CUT_LAYERS, CUT_PROMPT, CUT_STEPS = 2, 300, 8
+CUT_SEED = 37                   # see phase 11
+# measured 0.0156 (one bf16 ulp at the logits' size, max|logit| 4.06) on
+# an NVIDIA H100 80GB HBM3; held at two ulps of the largest logit
+CUT_LOGIT_TOL = 0.0625
+PROFILE_DECODE_STEPS = 16
 
 
 def check(ok: bool, what: str) -> None:
@@ -92,43 +125,71 @@ def bound(in_out, sites: int, flops_per_site: int) -> tuple[float, str]:
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def device_activity(fn):
+    """Run ``fn()`` under torch.profiler; return its result, the wall
+    seconds (host clock, synchronised), and the device seconds and count
+    of each device activity by name."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy, count = {}, {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            busy[e.name] = busy.get(e.name, 0.0) + e.device_time_total / 1e6
+            count[e.name] = count.get(e.name, 0) + 1
+    return out, wall, busy, count
+
+
 def hpl_profile(blocked_lu, a) -> None:
     """Factor ``a`` once plain and once under torch.profiler; print the
     wall times, the device's busy time by kernel and its idle share."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     n = a.shape[0]
 
-    def factor() -> float:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
+    def factor() -> None:
         blocked_lu(a, HPL_NB, lookahead=HPL_LOOKAHEAD)
-        torch.cuda.synchronize()
-        return time.perf_counter() - t0
 
-    walls = [factor()]
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        walls.append(factor())
-    busy, count = {}, {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            name = "gemm_kernel" if "gemm_kernel" in e.name else e.name
-            busy[name] = busy.get(name, 0.0) + e.device_time_total / 1e6
-            count[name] = count.get(name, 0) + 1
-    total = sum(busy.values())
-    gemm = busy.pop("gemm_kernel", 0.0), count.pop("gemm_kernel", 0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    factor()
+    torch.cuda.synchronize()
+    plain = time.perf_counter() - t0
+    _, wall, busy, count = device_activity(factor)
+    gemm = [0.0, 0]
+    for name in [k for k in busy if "gemm_kernel" in k]:
+        gemm[0] += busy.pop(name)
+        gemm[1] += count.pop(name)
+    total = sum(busy.values()) + gemm[0]
     print(f"[8] where the time goes, blocked_lu at n={n}, nb={HPL_NB}: "
-          f"{walls[0]:.3f} s plain, {walls[1]:.3f} s under the profiler; "
-          f"device busy {total:.3f} s ({100 * total / walls[1]:.1f}% of the "
-          f"profiled wall, idle {100 - 100 * total / walls[1]:.1f}%): the "
+          f"{plain:.3f} s plain, {wall:.3f} s under the profiler; "
+          f"device busy {total:.3f} s ({100 * total / wall:.1f}% of the "
+          f"profiled wall, idle {100 - 100 * total / wall:.1f}%): the "
           f"GEMM kernel {gemm[0]:.4f} s in {gemm[1]} launches, the rest "
           f"{total - gemm[0]:.4f} s in {sum(count.values())} device "
           f"activities ({sum(count.values()) / n:.1f} per column); the "
           f"largest of those:")
     for name in sorted(busy, key=busy.get, reverse=True)[:5]:
         print(f"    {busy[name]:.4f} s in {count[name]} x {name[:90]}")
+
+
+def print_activity(what: str, wall: float, busy: dict, count: dict,
+                   steps: int = 0) -> None:
+    total, n = sum(busy.values()), sum(count.values())
+    per = f", {n / steps:.1f} per step" if steps else ""
+    print(f"[12] profiled {what}: {wall * 1e3:.2f} ms wall, device busy "
+          f"{total * 1e3:.2f} ms ({100 * total / wall:.1f}%, idle "
+          f"{100 - 100 * total / wall:.1f}%) in {n} device activities{per}; "
+          f"the largest:")
+    for name in sorted(busy, key=busy.get, reverse=True)[:5]:
+        print(f"    {busy[name] * 1e3:.3f} ms in {count[name]} x "
+              f"{name[:90]}")
 
 
 def main() -> int:
@@ -140,7 +201,10 @@ def main() -> int:
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     import numpy as np
 
+    import dataclasses
+
     from repro_torch import convert
+    from repro_torch.config import full_config
     from repro_torch.configs.lcsc_lqcd import (EO_MIXED_SOLVER, PLAIN_SOLVER,
                                                THERMAL_LATTICE)
     from repro_torch.configs.hpl import DEFAULT_HPL, HPLConfig
@@ -151,8 +215,16 @@ def main() -> int:
     from repro_torch.kernels.dslash import kernel as K
     from repro_torch.kernels.dslash.ref import (dslash_eo_split_ref,
                                                 dslash_split_ref, to_split)
+    from repro_torch.kernels.rmsnorm import kernel as RK
+    from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+    from repro_torch.kernels.ssd_chunk import kernel as SK
+    from repro_torch.kernels.ssd_chunk.ref import ssd_chunk_ref
     from repro_torch.lqcd import (dslash_flops_per_site, eo_pack, pack_gauge,
                                   solve_dirac, su3_project)
+    from repro_torch.models import init_params
+    from repro_torch.runtime.steps import (grow_decode_cache,
+                                           make_decode_step,
+                                           make_prefill_step)
 
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -170,14 +242,15 @@ def main() -> int:
           f"versions must run in full f32)")
 
     # 2. build
+    families = ("dslash", "dgemm", "rmsnorm", "ssd_chunk")
     t0 = time.perf_counter()
-    _build.build(["dslash", "dgemm"])
-    K._lib()
-    G._lib()
-    print(f"[2] built {_build.library_path('dslash').name} and "
-          f"{_build.library_path('dgemm').name} in "
+    _build.build(families)
+    for mod in (K, G, RK, SK):
+        mod._lib()
+    print(f"[2] built "
+          f"{', '.join(_build.library_path(f).name for f in families)} in "
           f"{time.perf_counter() - t0:.2f} s")
-    for family in ("dslash", "dgemm"):
+    for family in families:
         for line in _build.build_log(family).splitlines():
             if "registers" in line or "spill" in line:
                 print(f"    ptxas ({family}): {line.strip()}")
@@ -454,7 +527,273 @@ def main() -> int:
                     "plain_ms": plain_ms, "bound_ms": b_ms,
                     "bound_by": b_by, "library_ms": library_ms})
 
-    print(f"[9] chip_smoke.py took {time.perf_counter() - t_start:.1f} s "
+
+    # 10. the LM kernels against their plain versions on the card
+    del a_big, l21, u12, a22
+    torch.cuda.empty_cache()
+    cfg = full_config(ARCH)
+    bf16 = torch.bfloat16
+    rms_tol = {torch.float32: 1e-5, bf16: 0.05}
+    for rows, d in RMS_SWEEP:
+        for dtype in (torch.float32, bf16):
+            x, w = randn(rows, d, dtype=dtype), randn(d, dtype=dtype)
+            got, want = RK.rmsnorm(x, w), rmsnorm_ref(x, w)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(got.float(), want.float(),
+                                       rtol=rms_tol[dtype],
+                                       atol=rms_tol[dtype])
+    # the path's shapes: the layer norms (bf16 x and scale over d_model)
+    # and the gated norm (f32 x, bf16 scale over d_inner), B x S rows
+    rows = SERVE_BATCH * SERVE_PROMPT
+    rms_path = {
+        "norm1": (randn(rows, cfg.d_model, dtype=bf16),
+                  randn(cfg.d_model, dtype=bf16)),
+        "gated": (randn(rows, cfg.d_inner_ssm),
+                  randn(cfg.d_inner_ssm, dtype=bf16))}
+    rms_errs = {}
+    for k, (x, w) in rms_path.items():
+        got, want = RK.rmsnorm(x, w), rmsnorm_ref(x, w)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.float(), want.float(),
+                                   rtol=rms_tol[x.dtype],
+                                   atol=rms_tol[x.dtype])
+        rms_errs[k] = float((got.float() - want.float()).abs().max())
+    err["rmsnorm"] = max(rms_errs.values())
+    print(f"[10] rmsnorm vs plain: {RMS_SWEEP} in f32 (1e-5) and bf16 "
+          f"(0.05) within tolerance; the path's ({rows}, {cfg.d_model}) "
+          f"bf16 max|err| {rms_errs['norm1']:.3e}, ({rows}, "
+          f"{cfg.d_inner_ssm}) f32 x, bf16 scale max|err| "
+          f"{rms_errs['gated']:.3e}")
+
+    def ssd_inputs(B, Q, H, P, N, dtype, views=False):
+        """test_ssd_chunk_sweep's distributions; with ``views``, x, B and
+        C are slices of one conv output and dt a slice of a longer
+        sequence, as the model passes them."""
+        x, bm, cm = randn(B, Q, H * P), randn(B, Q, N), randn(B, Q, N)
+        dt = torch.nn.functional.softplus(randn(B, 2 * Q, H))
+        A, h = -torch.exp(randn(H) * 0.3), randn(B, H, P, N)
+        conv = torch.cat([x, bm, cm], -1).to(dtype)
+        if not views:
+            conv = conv.clone()
+            return (conv[..., :H * P].reshape(B, Q, H, P).contiguous(),
+                    dt[:, :Q].contiguous(), A,
+                    conv[..., H * P:H * P + N].contiguous(),
+                    conv[..., H * P + N:].contiguous(), h)
+        return (conv[..., :H * P].reshape(B, Q, H, P), dt[:, Q:], A,
+                conv[..., H * P:H * P + N], conv[..., H * P + N:], h)
+
+    for shape in SSD_SWEEP:
+        for dtype in (torch.float32, bf16):
+            args = ssd_inputs(*shape, dtype)
+            (y, hn), (yr, hr) = SK.ssd_chunk(*args), ssd_chunk_ref(*args)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(y, yr, rtol=TOL, atol=TOL)
+            torch.testing.assert_close(hn, hr, rtol=TOL, atol=TOL)
+    sc = cfg.ssm
+    ssd_shape = (SERVE_BATCH, sc.chunk_size, cfg.n_ssm_heads, sc.head_dim,
+                 sc.d_state)
+    ssd_args = ssd_inputs(*ssd_shape, bf16, views=True)
+    (y, hn), (yr, hr) = SK.ssd_chunk(*ssd_args), ssd_chunk_ref(*ssd_args)
+    torch.cuda.synchronize()
+    # at Q = 256, N = 128 the f32 sums themselves are off an f64
+    # evaluation by up to 6.6e-6 of max|y| (the plain version, CPU, same
+    # distributions), so the absolute tolerance scales with max|y|
+    for got, want in ((y, yr), (hn, hr)):
+        scale = float(want.abs().max())
+        torch.testing.assert_close(got, want, rtol=TOL, atol=1e-5 * scale)
+    err["ssd_chunk"] = max(float((y - yr).abs().max()),
+                           float((hn - hr).abs().max()))
+    print(f"[10] ssd_chunk vs plain: {SSD_SWEEP} in f32 and bf16 within "
+          f"rtol = atol = {TOL}; the path's {ssd_shape} (bf16 x, B, C as "
+          f"views): max|dy| {float((y - yr).abs().max()):.3e} of max|y| "
+          f"{float(yr.abs().max()):.1f}, max|dh| "
+          f"{float((hn - hr).abs().max()):.3e} of max|h| "
+          f"{float(hr.abs().max()):.2f} (rtol {TOL}, atol 1e-5 max|.|)")
+
+    # 11. the third path: serving mamba2-370m at its published widths
+    V = cfg.vocab_size
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(dev).manual_seed(SEED), dev)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.parameters())
+    print(f"[11] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.n_ssm_heads} heads of {sc.head_dim}, d_state {sc.d_state}, "
+          f"chunk {sc.chunk_size}, vocab {V} (padded {cfg.vocab_padded}), "
+          f"{cfg.dtype}; {n_params} parameter elements "
+          f"(param_count() {cfg.param_count()}), initialised in "
+          f"{time.perf_counter() - t0:.2f} s")
+    prompt = np.random.default_rng(SEED).integers(
+        0, V, (SERVE_BATCH, SERVE_PROMPT))
+    batch = {"tokens": torch.from_numpy(prompt).to(dev, torch.int32)}
+    prefill, decode = make_prefill_step(cfg), make_decode_step(cfg)
+
+    def serve(gen):
+        """Prefill, then ``gen`` greedy steps, as launch.serve does."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = prefill(params, batch)
+        cache = grow_decode_cache(cfg, cache, SERVE_BATCH,
+                                  SERVE_PROMPT + gen)
+        torch.cuda.synchronize()
+        t_pre = time.perf_counter() - t0
+        finite = torch.isfinite(logits).all()
+        shape_ok = tuple(logits.shape) == (SERVE_BATCH, cfg.vocab_padded)
+        toks = [torch.argmax(logits[:, :V], -1)[:, None]]
+        t0 = time.perf_counter()
+        for _ in range(gen):
+            logits, cache = decode(params, toks[-1].to(torch.int32), cache)
+            finite &= torch.isfinite(logits).all()
+            toks.append(torch.argmax(logits[:, :V], -1)[:, None])
+        torch.cuda.synchronize()
+        t_dec = time.perf_counter() - t0
+        return (torch.cat(toks, 1), cache, bool(finite) and shape_ok,
+                t_pre, t_dec)
+
+    torch.cuda.synchronize()
+    for mod in (K, G, RK, SK):
+        mod.reset_launches()
+    toks, cache, finite, t_pre, t_dec = serve(SERVE_GEN)
+    lm_launches = {**K.LAUNCHES, **G.LAUNCHES, **RK.LAUNCHES, **SK.LAUNCHES}
+    L = cfg.n_layers
+    want_rms = (2 * L + 1) * (1 + SERVE_GEN)
+    want_ssd = L * -(-SERVE_PROMPT // sc.chunk_size)
+    print(f"[11] served {SERVE_BATCH} x {SERVE_PROMPT} prompt tokens, then "
+          f"{SERVE_GEN} greedy steps (first call): prefill {t_pre * 1e3:.1f}"
+          f" ms, decode {t_dec * 1e3:.1f} ms ({SERVE_GEN * SERVE_BATCH / t_dec:.1f}"
+          f" tok/s); launches {lm_launches} (want rmsnorm {want_rms}, "
+          f"ssd_chunk {want_ssd}); sample {toks[0, :16].tolist()}")
+    check(finite, "logits finite, of shape (B, vocab_padded), every step")
+    check(bool((toks < V).all()), f"greedy tokens < {V}")
+    check(int(cache["pos"]) == SERVE_PROMPT + SERVE_GEN,
+          f"pos == {SERVE_PROMPT + SERVE_GEN}")
+    check(tuple(cache["ssm"].shape) == (L, SERVE_BATCH) + ssd_shape[2:]
+          and cache["ssm"].dtype == torch.float32, "ssm cache layout")
+    check(lm_launches["rmsnorm"] == want_rms,
+          f"rmsnorm launched {want_rms} times (97 per forward)")
+    check(lm_launches["ssd_chunk"] == want_ssd,
+          f"ssd_chunk launched {want_ssd} times")
+    check(lm_launches["dslash_split"] == lm_launches["dslash_eo_split"]
+          == lm_launches["dgemm"] == 0, "the serve path launches no "
+          "D-slash and no GEMM kernel")
+    del cache
+
+    # the model cut to 2 layers at full width, on the CPU (plain versions)
+    # and on the card (kernels).  Seed 37's narrowest greedy choice (batch
+    # 1, 9 choices) is a top-2 logit gap of 0.125 on the CPU, 4 bf16 ulps
+    # at the logits' size (the widest of seeds 0-399, with 240, 244 and
+    # 396; most seeds have a choice within one ulp, which rounding on
+    # another device may flip).
+    cut = dataclasses.replace(cfg, n_layers=CUT_LAYERS)
+    p_cpu = init_params(cut, torch.Generator().manual_seed(CUT_SEED), "cpu")
+    p_gpu = copy.deepcopy(p_cpu).to(dev)
+    cut_prompt = torch.from_numpy(np.random.default_rng(CUT_SEED).integers(
+        0, V, (1, CUT_PROMPT)))
+    cut_prefill, cut_decode = make_prefill_step(cut), make_decode_step(cut)
+
+    def greedy(p, tokens):
+        logits, cache = cut_prefill(p, {"tokens": tokens})
+        first, toks, gaps = logits, [], []
+        for k in range(CUT_STEPS + 1):
+            top = torch.topk(logits[:, :V].float(), 2, -1).values
+            gaps.append(float((top[:, 0] - top[:, 1]).min()))
+            toks.append(torch.argmax(logits[:, :V], -1)[:, None])
+            if k < CUT_STEPS:
+                logits, cache = cut_decode(p, toks[-1], cache)
+        return (first[:, :V].float().cpu(), torch.cat(toks, 1).cpu(),
+                min(gaps))
+
+    first_c, toks_c, gap_c = greedy(p_cpu, cut_prompt)
+    for mod in (RK, SK):
+        mod.reset_launches()
+    first_g, toks_g, gap_g = greedy(p_gpu, cut_prompt.to(dev))
+    dlogit = float((first_g - first_c).abs().max())
+    print(f"[11] {CUT_LAYERS} layers at full width, prompt {CUT_PROMPT}: "
+          f"CPU plain vs card kernels: max|dlogits| after prefill "
+          f"{dlogit:.4f} (of max|logit| {float(first_c.abs().max()):.3f}); "
+          f"greedy tokens {toks_c[0].tolist()} (CPU) and "
+          f"{toks_g[0].tolist()} (card); narrowest top-2 gap "
+          f"{gap_c:.4f} (CPU), {gap_g:.4f} (card); card launches "
+          f"{dict(RK.LAUNCHES)}, {dict(SK.LAUNCHES)}")
+    check(RK.LAUNCHES["rmsnorm"] == (2 * CUT_LAYERS + 1) * (CUT_STEPS + 1)
+          and SK.LAUNCHES["ssd_chunk"]
+          == CUT_LAYERS * -(-CUT_PROMPT // sc.chunk_size),
+          "the cut model on the card went through both kernels")
+    check(torch.equal(toks_c, toks_g), "same greedy tokens on CPU and card")
+    check(dlogit <= CUT_LOGIT_TOL,
+          f"prefill logits agree within {CUT_LOGIT_TOL}")
+    del p_gpu
+
+    # 12. times
+    x, w = rms_path["gated"]
+    w32 = w.float()
+    rms_ms = {k: timed_ms(lambda: RK.rmsnorm(*a), reps=50, warmup=5)
+              for k, a in rms_path.items()}
+    plain_ms = timed_ms(lambda: rmsnorm_ref(x, w), reps=10, warmup=2)
+    library_ms = timed_ms(lambda: torch.nn.functional.rms_norm(
+        x, (x.shape[1],), w32, eps=1e-6), reps=50, warmup=5)
+    b_ms, b_by = bound([x, w, x], x.numel(), 4)
+    xn, wn = rms_path["norm1"]
+    bn_ms, _ = bound([xn, wn, xn], xn.numel(), 4)
+    print(f"[12] rmsnorm ({rows}, {x.shape[1]}) f32 x, bf16 scale (the "
+          f"gated norm): {rms_ms['gated'] * 1e3:.1f} us, "
+          f"{100 * b_ms / rms_ms['gated']:.1f}% of the {b_ms * 1e3:.1f} us "
+          f"{b_by} bound; plain {plain_ms * 1e3:.1f} us; library "
+          f"F.rms_norm {library_ms * 1e3:.1f} us.  ({rows}, {xn.shape[1]}) "
+          f"bf16 (norm1, final_norm): {rms_ms['norm1'] * 1e3:.1f} us, "
+          f"{100 * bn_ms / rms_ms['norm1']:.1f}% of {bn_ms * 1e3:.1f} us")
+    records.append({"name": "rmsnorm", "route": "cuda", "source": RMS_SOURCE,
+                    "replaces": RMS_REPLACES,
+                    "launches": lm_launches["rmsnorm"],
+                    "max_abs_err": err["rmsnorm"], "ms": rms_ms["gated"],
+                    "plain_ms": plain_ms, "bound_ms": b_ms,
+                    "bound_by": b_by, "library_ms": library_ms})
+    Bb, Q, H, P, N = ssd_shape
+    ms = timed_ms(lambda: SK.ssd_chunk(*ssd_args), reps=20, warmup=3)
+    plain_ms = timed_ms(lambda: ssd_chunk_ref(*ssd_args), reps=5, warmup=1)
+    flops = 2 * Q * Q * N + 2 * Q * Q * P + 4 * Q * P * N
+    b_ms, b_by = bound(list(ssd_args) + [y, hn], Bb * H, flops)
+    print(f"[12] ssd_chunk {ssd_shape}: {ms * 1e3:.1f} us, "
+          f"{Bb * H * flops / ms / 1e9:.2f} TFLOP/s of the full-square "
+          f"count ({Bb * H * flops / 1e9:.2f} GFLOP), "
+          f"{100 * b_ms / ms:.1f}% of the {b_ms * 1e3:.1f} us {b_by} bound; "
+          f"plain {plain_ms:.3f} ms; library_ms: n/a (no PyTorch call "
+          f"computes an SSD chunk)")
+    records.append({"name": "ssd_chunk", "route": "cuda",
+                    "source": SSD_SOURCE, "replaces": SSD_REPLACES,
+                    "launches": lm_launches["ssd_chunk"],
+                    "max_abs_err": err["ssd_chunk"], "ms": ms,
+                    "plain_ms": plain_ms, "bound_ms": b_ms,
+                    "bound_by": b_by, "library_ms": None})
+    del rms_path, ssd_args, y, hn, yr, hr
+    _, _, _, t_pre, t_dec = serve(SERVE_GEN)
+    print(f"[12] serve, second call: prefill {SERVE_BATCH} x {SERVE_PROMPT} "
+          f"{t_pre * 1e3:.1f} ms ({SERVE_BATCH * SERVE_PROMPT / t_pre:.0f} "
+          f"tok/s); decode {SERVE_GEN} steps x {SERVE_BATCH} "
+          f"{t_dec * 1e3:.1f} ms ({t_dec / SERVE_GEN * 1e3:.2f} ms per step, "
+          f"{SERVE_GEN * SERVE_BATCH / t_dec:.1f} tok/s); the weights' "
+          f"{n_params * 2 / 1e9:.3f} GB read once per step is "
+          f"{n_params * 2 / HBM_BYTES_PER_S * 1e3:.3f} ms at "
+          f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s")
+    (logits, cache), wall, busy, count = device_activity(
+        lambda: prefill(params, batch))
+    print_activity(f"prefill {SERVE_BATCH} x {SERVE_PROMPT}", wall, busy,
+                   count)
+    cache = grow_decode_cache(cfg, cache, SERVE_BATCH,
+                              SERVE_PROMPT + PROFILE_DECODE_STEPS)
+    tok = torch.argmax(logits[:, :V], -1)[:, None].to(torch.int32)
+
+    def decode_steps():
+        lg, c, t = logits, cache, tok
+        for _ in range(PROFILE_DECODE_STEPS):
+            lg, c = decode(params, t, c)
+            t = torch.argmax(lg[:, :V], -1)[:, None].to(torch.int32)
+        return t
+
+    _, wall, busy, count = device_activity(decode_steps)
+    print_activity(f"{PROFILE_DECODE_STEPS} decode steps", wall, busy, count,
+                   steps=PROFILE_DECODE_STEPS)
+
+    print(f"[12] chip_smoke.py took {time.perf_counter() - t_start:.1f} s "
           f"in all")
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {

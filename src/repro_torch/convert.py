@@ -8,14 +8,19 @@ back.  Layouts are the JAX package's:
   U:   (4, X, Y, Z, T, 3, 3) complex64
   HPL: a (n, n) float32; an LU factorization as its packed ``lu`` (n, n)
        float32 and ``piv`` (n // nb, nb) int32
+  LM:  the ``init_params`` tree (nested dicts, layers stacked on a
+       leading axis) and the decode cache dict, as float32 numpy arrays
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from repro_torch.config import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.hpl.lu import LUResult
+from repro_torch.models.layers import param_dtype
+from repro_torch.models.transformer import Model, empty_params
 
 
 def _from_numpy(a, tail: tuple, lead: int, what: str,
@@ -68,3 +73,58 @@ def lu_from_numpy(lu, piv, device="cuda") -> LUResult:
 def to_numpy(t: torch.Tensor) -> np.ndarray:
     """A tensor on any device as a numpy array."""
     return t.detach().cpu().numpy()
+
+
+def _load(module: torch.nn.Module, tree: dict, what: str,
+          index: int | None = None) -> None:
+    """Copy ``tree``'s arrays (layer ``index`` of stacked ones) into the
+    parameters of the same names, cast to each parameter's dtype."""
+    names = dict(module.named_parameters(recurse=False))
+    if set(tree) != set(names):
+        raise ValueError(f"{what}: the tree has {sorted(tree)}, the port's "
+                         f"module {sorted(names)}")
+    for k, p in names.items():
+        a = np.asarray(tree[k])
+        if a.dtype != np.float32:
+            raise TypeError(f"{what}.{k}: pass float32 arrays, got {a.dtype}")
+        if index is not None:
+            a = a[index]
+        if a.shape != tuple(p.shape):
+            raise ValueError(f"{what}.{k} must have shape {tuple(p.shape)}, "
+                             f"got {a.shape}")
+        with torch.no_grad():
+            p.copy_(torch.from_numpy(np.array(a, order="C")))
+
+
+def params_from_numpy(tree: dict, cfg: ModelConfig, device="cuda") -> Model:
+    """The JAX package's ``init_params(cfg, key)`` tree as the port's model.
+
+    The arrays must be float32 (``np.asarray(a, np.float32)``): each is
+    cast to its parameter's dtype on the way in, so bfloat16 weights come
+    back bit for bit.  Layers, stacked on a leading axis in the tree, are
+    unstacked."""
+    model = empty_params(cfg, device)
+    _load(model.embed, tree["embed"], "embed")
+    for i, layer in enumerate(model.layers):
+        _load(layer.norm1, tree["layers"]["norm1"], "layers.norm1", i)
+        _load(layer.ssm, tree["layers"]["ssm"], "layers.ssm", i)
+    _load(model.final_norm, tree["final_norm"], "final_norm")
+    _load(model.lm_head, tree.get("lm_head", {}), "lm_head")
+    return model
+
+
+def cache_from_numpy(cache: dict, cfg: ModelConfig, device="cuda") -> dict:
+    """The JAX package's ssm decode cache (``ssm`` (L, B, H, P, N),
+    ``conv`` (L, B, K-1, C), ``pos``) as the port's: ``ssm`` float32,
+    ``conv`` in the model's dtype, ``pos`` an int32 scalar."""
+    dev = resolve_device(device)
+    if set(cache) != {"pos", "ssm", "conv"}:
+        raise ValueError(f"an ssm decode cache has pos, ssm and conv, got "
+                         f"{sorted(cache)}")
+    return {
+        "pos": torch.tensor(int(np.asarray(cache["pos"])), dtype=torch.int32,
+                            device=dev),
+        "ssm": torch.from_numpy(np.array(cache["ssm"], np.float32)).to(dev),
+        "conv": torch.from_numpy(np.array(cache["conv"], np.float32)).to(
+            dev, param_dtype(cfg)),
+    }

@@ -1,0 +1,24 @@
+"""RMSNorm on either device: the counterpart of the JAX package's
+``repro.kernels.rmsnorm.ops.rmsnorm``.
+
+A CPU tensor takes the plain version (``ref.py``); a CUDA tensor takes the
+hand-written kernel (``kernel.py``), which raises on anything it cannot
+run.  There is no fallback from the kernel to the plain version.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.rmsnorm import kernel
+from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+
+
+def rmsnorm(x: torch.Tensor, w: torch.Tensor, *,
+            eps: float = 1e-6) -> torch.Tensor:
+    """Fused RMSNorm over the last dim of x (..., d); w (d,).  Float32
+    math, the result in ``x.dtype``.  Unlike the JAX wrapper, any row count
+    works: the CUDA kernel has no block-divisibility condition."""
+    if x.device.type == "cpu" and w.device.type == "cpu":
+        return rmsnorm_ref(x, w, eps)
+    shape = x.shape
+    return kernel.rmsnorm(x.reshape(-1, shape[-1]), w, eps).reshape(shape)

@@ -1,0 +1,28 @@
+"""One SSD chunk on either device: the counterpart of the JAX package's
+``repro.kernels.ssd_chunk.ops.ssd_chunk``.
+
+A CPU tensor takes the plain version (``ref.py``); a CUDA tensor takes the
+hand-written kernel (``kernel.py``), which raises on anything it cannot
+run.  There is no fallback from the kernel to the plain version.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.ssd_chunk import kernel
+from repro_torch.kernels.ssd_chunk.ref import ssd_chunk_ref
+
+
+def ssd_chunk(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+              B_mat: torch.Tensor, C_mat: torch.Tensor,
+              h: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """One chunk for all batches and heads.
+
+    x: (B, Q, H, P); dt: (B, Q, H); A: (H,); B_mat/C_mat: (B, Q, N) (one
+    group: the caller broadcasts); h: (B, H, P, N).  Returns
+    (y (B, Q, H, P), h_new (B, H, P, N)), both float32.
+    """
+    args = (x, dt, A, B_mat, C_mat, h)
+    if all(t.device.type == "cpu" for t in args):
+        return ssd_chunk_ref(*args)
+    return kernel.ssd_chunk(*args)

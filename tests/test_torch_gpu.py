@@ -1,6 +1,7 @@
-"""The port's CUDA kernels, its solve and its LU on the card.  Every test here is
-marked ``gpu`` and skips without a CUDA device; none imports JAX, so the
-file runs on a machine that has only PyTorch:
+"""The port's CUDA kernels, its solve, its LU and its mamba2 serve path on
+the card.  Every test here is marked ``gpu`` and skips without a CUDA
+device; none imports JAX, so the file runs on a machine that has only
+PyTorch:
 
   PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 """
@@ -16,6 +17,12 @@ from repro_torch.kernels.dgemm import kernel as G  # noqa: E402
 from repro_torch.kernels.dgemm import ops as gops  # noqa: E402
 from repro_torch.kernels.dgemm import ref as gref  # noqa: E402
 from repro_torch.kernels.dslash import kernel as K  # noqa: E402
+from repro_torch.kernels.rmsnorm import kernel as RMK  # noqa: E402
+from repro_torch.kernels.rmsnorm import ops as rmops  # noqa: E402
+from repro_torch.kernels.rmsnorm import ref as rmref  # noqa: E402
+from repro_torch.kernels.ssd_chunk import kernel as SSK  # noqa: E402
+from repro_torch.kernels.ssd_chunk import ops as ssops  # noqa: E402
+from repro_torch.kernels.ssd_chunk import ref as ssref  # noqa: E402
 from repro_torch.kernels.dslash import ops, ref  # noqa: E402
 from repro_torch.lqcd import cg as TC  # noqa: E402
 from repro_torch.lqcd import eo as TE  # noqa: E402
@@ -199,3 +206,138 @@ def test_blocked_lu_on_the_card_matches_the_cpu(cuda, lookahead):
     x = lu_solve(got, b.to(cuda), nb)
     torch.testing.assert_close(x.cpu(), lu_solve(want, b, nb), rtol=2e-2,
                                atol=2e-2)
+
+
+# the RMSNorm kernel: tests/test_kernels.py::test_rmsnorm_sweep's
+# tolerances, ragged row counts, float32 and bfloat16 (x and w each)
+RMS_TOL = {torch.float32: 1e-5, torch.bfloat16: 0.05}
+
+
+@pytest.mark.parametrize("w_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,d", [(64, 128), (256, 512), (132, 256),
+                                    (1, 1024), (7, 2048), (1000, 33)])
+def test_rmsnorm_kernel_matches_plain(cuda, rows, d, dtype, w_dtype):
+    g = torch.Generator().manual_seed(rows + d)
+    x = torch.randn(rows, d, generator=g).to(cuda, dtype)
+    w = torch.randn(d, generator=g).to(cuda, w_dtype)
+    before = RMK.LAUNCHES["rmsnorm"]
+    got = RMK.rmsnorm(x, w)
+    assert RMK.LAUNCHES["rmsnorm"] == before + 1
+    want = rmref.rmsnorm_ref(x, w)
+    assert got.dtype == dtype
+    tol = RMS_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def test_rmsnorm_kernel_on_a_row_view(cuda):
+    x = torch.randn(33, 512, generator=torch.Generator().manual_seed(1))
+    x = x.to(cuda)[:, 3:259]                 # row stride 512, off 16 bytes
+    w = torch.randn(256, device=cuda)
+    torch.testing.assert_close(RMK.rmsnorm(x, w), rmref.rmsnorm_ref(x, w),
+                               rtol=1e-5, atol=1e-5)
+
+
+def test_ops_rmsnorm_on_the_card_launches_the_kernel(cuda):
+    x = torch.randn(2, 3, 64, device=cuda).bfloat16()
+    w = torch.randn(64, device=cuda).bfloat16()
+    before = RMK.LAUNCHES["rmsnorm"]
+    got = rmops.rmsnorm(x, w)
+    assert RMK.LAUNCHES["rmsnorm"] == before + 1 and got.shape == x.shape
+
+
+def test_rmsnorm_kernel_refuses_mixed_devices(cuda):
+    with pytest.raises(ValueError, match="one CUDA device"):
+        RMK.rmsnorm(torch.ones(4, 8, device=cuda), torch.ones(8))
+
+
+# the SSD-chunk kernel: test_ssd_chunk_sweep's shapes at its 1e-4, the
+# smoke model's chunk, ragged chunks and P, N off the tiles; x, B, C in
+# float32 and bfloat16
+SSD_SHAPES = [(2, 16, 3, 8, 4), (1, 32, 2, 16, 8), (3, 8, 4, 4, 16),
+              (2, 32, 8, 16, 16), (1, 45, 2, 20, 33), (2, 70, 2, 64, 128),
+              (1, 1, 1, 1, 1), (1, 300, 1, 128, 7)]
+
+
+def _ssd_inputs(B, Q, H, P, N, dtype, device, strided=False):
+    g = torch.Generator().manual_seed(B + Q + H + P + N)
+    x = torch.randn(B, Q, H, P, generator=g)
+    dt = torch.nn.functional.softplus(torch.randn(B, Q, H, generator=g))
+    A = -torch.exp(torch.randn(H, generator=g) * 0.3)
+    bm = torch.randn(B, Q, N, generator=g)
+    cm = torch.randn(B, Q, N, generator=g)
+    h = torch.randn(B, H, P, N, generator=g)
+    x, dt, A, bm, cm, h = (t.to(device) for t in (x, dt, A, bm, cm, h))
+    x, bm, cm = x.to(dtype), bm.to(dtype), cm.to(dtype)
+    if strided:      # views of one conv output, as the model passes them
+        big = torch.cat([x.reshape(B, Q, H * P), bm, cm], -1)
+        x = big[..., :H * P].reshape(B, Q, H, P)
+        bm, cm = big[..., H * P:H * P + N], big[..., H * P + N:]
+        dt = torch.cat([dt, dt], -1)[..., :H]
+    return x, dt, A, bm, cm, h
+
+
+@pytest.mark.parametrize("strided", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Q,H,P,N", SSD_SHAPES)
+def test_ssd_chunk_kernel_matches_plain(cuda, B, Q, H, P, N, dtype,
+                                        strided):
+    args = _ssd_inputs(B, Q, H, P, N, dtype, cuda, strided)
+    before = SSK.LAUNCHES["ssd_chunk"]
+    y, hn = SSK.ssd_chunk(*args)
+    assert SSK.LAUNCHES["ssd_chunk"] == before + 1
+    yr, hr = ssref.ssd_chunk_ref(*args)
+    torch.testing.assert_close(y, yr, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(hn, hr, rtol=1e-4, atol=1e-4)
+
+
+def test_ops_ssd_chunk_on_the_card_launches_the_kernel(cuda):
+    args = _ssd_inputs(2, 16, 3, 8, 4, torch.float32, cuda)
+    before = SSK.LAUNCHES["ssd_chunk"]
+    ssops.ssd_chunk(*args)
+    assert SSK.LAUNCHES["ssd_chunk"] == before + 1
+
+
+def test_ssd_chunk_kernel_refuses_mixed_devices(cuda):
+    x, dt, A, bm, cm, h = _ssd_inputs(2, 16, 3, 8, 4, torch.float32, cuda)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        SSK.ssd_chunk(x, dt, A.cpu(), bm, cm, h)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_mamba2_serve_on_the_card_matches_the_cpu(cuda, dtype):
+    """The smoke model's prefill (a ragged last chunk) and 4 decode steps:
+    kernels on the card, plain versions on the CPU, same weights."""
+    import copy
+    import dataclasses
+    from repro_torch.config import smoke_config
+    from repro_torch.models import init_params
+    from repro_torch.runtime import steps
+    cfg = dataclasses.replace(smoke_config("mamba2-370m"), dtype=dtype)
+    cpu = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    card = copy.deepcopy(cpu).to(cuda)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 45)))
+    tol = dict(rtol=1e-4, atol=1e-4) if dtype == "float32" else \
+        dict(rtol=2e-2, atol=2e-2)
+    prefill, decode = steps.make_prefill_step(cfg), steps.make_decode_step(cfg)
+    before = (RMK.LAUNCHES["rmsnorm"], SSK.LAUNCHES["ssd_chunk"])
+    lc, cc = prefill(cpu, {"tokens": toks})
+    lg, cg = prefill(card, {"tokens": toks.to(cuda)})
+    L = cfg.n_layers
+    assert RMK.LAUNCHES["rmsnorm"] == before[0] + 2 * L + 1
+    assert SSK.LAUNCHES["ssd_chunk"] == before[1] + 2 * L   # 45 = 32 + 13
+    for _ in range(4):
+        torch.testing.assert_close(lg.cpu().float(), lc.float(), **tol)
+        for k in ("ssm", "conv"):
+            torch.testing.assert_close(cg[k].cpu().float(), cc[k].float(),
+                                       **tol)
+        # both sides decode the CPU's tokens; in float32 the card picks
+        # the same ones (in bfloat16 a near tie may round either way)
+        tok = torch.argmax(lc[:, :cfg.vocab_size], -1)[:, None]
+        if dtype == "float32":
+            assert torch.equal(
+                torch.argmax(lg[:, :cfg.vocab_size], -1)[:, None].cpu(), tok)
+        lc, cc = decode(cpu, tok, cc)
+        lg, cg = decode(card, tok.to(cuda), cg)
+    assert int(cg["pos"]) == 45 + 4
