@@ -67,6 +67,7 @@ N_RHS = 2
 TOL = 1e-4                      # rtol = atol: tests/test_kernels.py sweep
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet
 F32_FLOP_PER_S = 67e12          # H100 SXM data sheet, f32 outside tensor cores
+BF16_TC_FLOP_PER_S = 989e12     # H100 SXM data sheet, bf16 dense tensor cores
 SOURCE = "src/repro_torch/kernels/dslash/csrc/dslash.cu"
 REPLACES = {"dslash_eo_split": "src/repro/kernels/dslash/kernel.py:180",
             "dslash_split": "src/repro/kernels/dslash/kernel.py:217"}
@@ -116,12 +117,16 @@ def timed_ms(fn, reps: int, warmup: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound(in_out, sites: int, flops_per_site: int) -> tuple[float, str]:
+def bound(in_out, sites: int, flops_per_site: int,
+          bf16_tc_flops: int = 0) -> tuple[float, str]:
     """Least time (ms) for the work: each input read once and the output
-    written once at the HBM rate, or the flops at the f32 rate."""
+    written once at the HBM rate, or the flops at the f32 rate plus
+    ``bf16_tc_flops`` (bf16 operands, f32 sums: exact on the tensor cores)
+    at the bf16 tensor-core rate."""
     nbytes = sum(t.numel() * t.element_size() for t in in_out)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = sites * flops_per_site / F32_FLOP_PER_S * 1e3
+    t_ops = (sites * flops_per_site / F32_FLOP_PER_S
+             + bf16_tc_flops / BF16_TC_FLOP_PER_S) * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -592,6 +597,13 @@ def main() -> int:
     sc = cfg.ssm
     ssd_shape = (SERVE_BATCH, sc.chunk_size, cfg.n_ssm_heads, sc.head_dim,
                  sc.d_state)
+    # the wrapper's copy of the kernel's tiles and limits against the
+    # library's own (the path's chunk, a long admitted one, refused ones)
+    for qpn in (ssd_shape[1:2] + ssd_shape[3:], (8000, 128, 256),
+                (30000, 8, 4), (16, 129, 4), (16, 8, 257)):
+        check(SK.library_smem_bytes(*qpn) == SK.admitted_smem_bytes(*qpn),
+              f"ssd_chunk shared memory and limits at (Q, P, N) = {qpn} "
+              f"agree with the library")
     ssd_args = ssd_inputs(*ssd_shape, bf16, views=True)
     (y, hn), (yr, hr) = SK.ssd_chunk(*ssd_args), ssd_chunk_ref(*ssd_args)
     torch.cuda.synchronize()
@@ -750,12 +762,28 @@ def main() -> int:
     Bb, Q, H, P, N = ssd_shape
     ms = timed_ms(lambda: SK.ssd_chunk(*ssd_args), reps=20, warmup=3)
     plain_ms = timed_ms(lambda: ssd_chunk_ref(*ssd_args), reps=5, warmup=1)
-    flops = 2 * Q * Q * N + 2 * Q * Q * P + 4 * Q * P * N
-    b_ms, b_by = bound(list(ssd_args) + [y, hn], Bb * H, flops)
+    # the flops the function needs: the lower triangle (diagonal included)
+    # of C B^T once per batch row (one group), exact on the bf16 tensor
+    # cores when B and C are bf16; per (b, h) the lower triangle of the
+    # scores times x and the two state terms, C h^T and x^T (B e^(..) dt),
+    # whose f32 operands need the f32 rate
+    cbt = Bb * Q * (Q + 1) * N
+    per_head = Q * (Q + 1) * P + 4 * Q * P * N
+    on_tc = ssd_args[3].dtype == bf16
+    b_ms, b_by = bound(list(ssd_args) + [y, hn], 1,
+                       Bb * H * per_head + (0 if on_tc else cbt),
+                       bf16_tc_flops=cbt if on_tc else 0)
+    needed = Bb * H * per_head + cbt
+    full_square = Bb * H * (2 * Q * Q * N + 2 * Q * Q * P + 4 * Q * P * N)
     print(f"[12] ssd_chunk {ssd_shape}: {ms * 1e3:.1f} us, "
-          f"{Bb * H * flops / ms / 1e9:.2f} TFLOP/s of the full-square "
-          f"count ({Bb * H * flops / 1e9:.2f} GFLOP), "
-          f"{100 * b_ms / ms:.1f}% of the {b_ms * 1e3:.1f} us {b_by} bound; "
+          f"{needed / ms / 1e9:.2f} TFLOP/s of the {needed / 1e9:.3f} GFLOP "
+          f"needed (C B^T {cbt / 1e9:.3f} GFLOP at the "
+          f"{'bf16 tensor-core' if on_tc else 'f32'} rate, the rest "
+          f"{Bb * H * per_head / 1e9:.3f} GFLOP at the f32 rate), "
+          f"{100 * b_ms / ms:.1f}% of the {b_ms * 1e3:.1f} us "
+          f"{b_by} bound; the TPU kernel's per-head full-square count "
+          f"{full_square / 1e9:.3f} GFLOP would be "
+          f"{full_square / F32_FLOP_PER_S * 1e6:.1f} us at the f32 rate; "
           f"plain {plain_ms:.3f} ms; library_ms: n/a (no PyTorch call "
           f"computes an SSD chunk)")
     records.append({"name": "ssd_chunk", "route": "cuda",

@@ -14,12 +14,15 @@
 // x, B and C are float32 or bfloat16 (bfloat16 on the serve path); dt, A
 // and h are float32; y and h' are float32.  All math is float32.
 //
-// Bound.  Per (b, h): 2 Q^2 N (C B^T) + 2 Q^2 P (scores x) + 4 Q P N (the
-// two state terms) flops; at the serve path's Q = 256, P = 64, N = 128 and
-// 4 x 32 (b, h) that is 4.3 GFLOP per launch (64 us at 67 TFLOP/s f32)
-// against 21.6 MB moved (6.5 us at 3.35 TB/s), so it is bound by
-// operations.  Half of the Q^2 terms lie above the diagonal and are
-// skipped, not computed and masked.
+// Bound.  The function needs, per batch row, the lower triangle of C B^T
+// once (one group: the same for every head), Q (Q + 1) N flops, exact on
+// bf16 tensor cores when B and C are bf16; and per (b, h) the lower
+// triangle of the scores times x, Q (Q + 1) P flops, plus the two state
+// terms, 4 Q P N, in f32.  At the serve path's Q = 256, P = 64, N = 128
+// and 4 x 32 (b, h) that is 0.034 GFLOP at 989 TFLOP/s bf16 plus
+// 1.61 GFLOP at 67 TFLOP/s f32, 24.1 us, against 21.6 MB moved (6.5 us at
+// 3.35 TB/s): bound by operations.  This kernel does more than that: it
+// recomputes C B^T per head, and on the CUDA cores in f32.
 //
 // Design.  The TPU kernel holds one (b, h)'s whole working set (x, B, C
 // and the (Q, Q) scores: over 500 KB in f32 at the path's shape) in VMEM;
@@ -312,6 +315,14 @@ cudaError_t launch(const Args& a, int batch, cudaStream_t stream) {
 
 extern "C" {
 
+// Bytes of dynamic shared memory one block takes at (Q, P, N), or -1 where
+// ssd_chunk_launch refuses the shape (P > 128, N > 256, or over 227 KB).
+int64_t ssd_chunk_smem_bytes(int Q, int P, int N) {
+  if (Q <= 0 || P <= 0 || N <= 0 || P > kMaxP || N > kMaxN) return -1;
+  const int64_t bytes = smem_floats(Q, P, N) * (int64_t)sizeof(float);
+  return bytes > kMaxSmem ? -1 : bytes;
+}
+
 // Enqueues one kernel on ``stream`` of ``device`` and returns the launch's
 // cudaError_t (0 on success); it does not synchronise.  x is (B, Q, H, P)
 // with element strides (x_sb, x_sq, x_sh) and unit p stride; dt (B, Q, H)
@@ -328,9 +339,8 @@ int ssd_chunk_launch(const void* x, const float* dt, const float* A,
                      int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (batch <= 0 || Q <= 0 || H <= 0 || P <= 0 || N <= 0 || P > kMaxP ||
-      N > kMaxN || (int64_t)batch * H > 0x7fffffff || dtype < 0 ||
-      dtype > 1 || smem_floats(Q, P, N) * 4 > kMaxSmem)
+  if (batch <= 0 || H <= 0 || ssd_chunk_smem_bytes(Q, P, N) < 0 ||
+      (int64_t)batch * H > 0x7fffffff || dtype < 0 || dtype > 1)
     return (int)cudaErrorInvalidValue;
   Args a;
   a.x = x; a.dt = dt; a.A = A; a.B = B; a.C = C; a.h = h;

@@ -25,6 +25,11 @@ from repro_torch.kernels._build import library
 LAUNCHES = {"ssd_chunk": 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# The source's tiles (kTI, kTJ, kTP, kThreads) and limits (kMaxP, kMaxN,
+# kMaxSmem), so that a shape is refused before the library is built.  The
+# library's ssd_chunk_smem_bytes is the source of truth: tests/test_torch_gpu.py
+# and chip_smoke.py hold smem_bytes() and these limits against it.
+TI, TJ, TP, THREADS = 32, 32, 16, 256
 MAX_P, MAX_N = 128, 256             # the kernel's per-thread register tiles
 MAX_SMEM_BYTES = 232448             # 227 KB: one Hopper block's limit
 
@@ -42,15 +47,31 @@ def _lib() -> ctypes.CDLL:
     lib.ssd_chunk_launch.restype = i
     lib.ssd_chunk_error_string.argtypes = [i]
     lib.ssd_chunk_error_string.restype = ctypes.c_char_p
+    lib.ssd_chunk_smem_bytes.argtypes = [i, i, i]
+    lib.ssd_chunk_smem_bytes.restype = i64
     return lib
 
 
 def smem_bytes(Q: int, P: int, N: int) -> int:
     """Bytes of shared memory one block takes: ``smem_floats`` in the
-    source, for its 32-row tiles, 16-row state tiles and 256 threads."""
-    out_role = 32 * (N + 1) * 2 + 32 * P + 32 * 33
-    state_role = 32 * N + 32 * 16
-    return 4 * (2 * Q + 256 + max(out_role, state_role))
+    source."""
+    out_role = TI * (N + 1) + TJ * (N + 1) + TJ * P + TI * (TJ + 1)
+    state_role = TJ * N + TJ * TP
+    return 4 * (2 * Q + THREADS + max(out_role, state_role))
+
+
+def admitted_smem_bytes(Q: int, P: int, N: int) -> int:
+    """``smem_bytes`` where this wrapper admits the shape, else -1: what
+    ``library_smem_bytes`` must return."""
+    if min(Q, P, N) <= 0 or P > MAX_P or N > MAX_N:
+        return -1
+    return -1 if smem_bytes(Q, P, N) > MAX_SMEM_BYTES else smem_bytes(Q, P, N)
+
+
+def library_smem_bytes(Q: int, P: int, N: int) -> int:
+    """The built library's ``ssd_chunk_smem_bytes``: bytes of shared memory
+    a launch at (Q, P, N) takes, or -1 where the launch is refused."""
+    return int(_lib().ssd_chunk_smem_bytes(Q, P, N))
 
 
 def _check_shape(name: str, t: torch.Tensor, shape: tuple) -> None:

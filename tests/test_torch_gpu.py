@@ -298,6 +298,15 @@ def test_ops_ssd_chunk_on_the_card_launches_the_kernel(cuda):
     assert SSK.LAUNCHES["ssd_chunk"] == before + 1
 
 
+@pytest.mark.parametrize("Q,P,N", [
+    (256, 64, 128), (32, 16, 16), (1, 1, 1), (300, 128, 256),
+    (8000, 128, 256), (30000, 8, 4), (16, 129, 4), (16, 8, 257)])
+def test_ssd_chunk_limits_match_the_library(cuda, Q, P, N):
+    """The wrapper's copy of the kernel's tiles and limits refuses and
+    sizes exactly what the built library does."""
+    assert SSK.library_smem_bytes(Q, P, N) == SSK.admitted_smem_bytes(Q, P, N)
+
+
 def test_ssd_chunk_kernel_refuses_mixed_devices(cuda):
     x, dt, A, bm, cm, h = _ssd_inputs(2, 16, 3, 8, 4, torch.float32, cuda)
     with pytest.raises(ValueError, match="one CUDA device"):

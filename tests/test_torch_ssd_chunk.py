@@ -130,6 +130,14 @@ def test_cuda_wrapper_refuses_what_the_kernel_cannot_hold(no_build, shape,
         K.ssd_chunk(**_args(**shape))
 
 
+@pytest.mark.parametrize("Q,P,N, fits", [
+    (256, 64, 128, True), (16, 129, 4, False), (16, 8, 257, False),
+    (30000, 8, 4, False), (0, 8, 4, False)])
+def test_admitted_smem_bytes_follows_the_wrapper_limits(Q, P, N, fits):
+    want = K.smem_bytes(Q, P, N) if fits else -1
+    assert K.admitted_smem_bytes(Q, P, N) == want
+
+
 def test_path_shape_fits_one_block():
     """The serve path's chunk (Q = 256, P = 64, N = 128) fits the 227 KB a
     Hopper block may use; the JAX kernel's whole (b, h) working set would
