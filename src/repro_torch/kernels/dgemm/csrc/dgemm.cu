@@ -1,5 +1,5 @@
-// Register-blocked GEMM for Hopper (sm_90a), bound to Python with ctypes
-// (see repro_torch/kernels/dgemm/kernel.py).
+// Register-blocked IEEE-f32 GEMM for Hopper (sm_90a), bound to Python with
+// ctypes (see repro_torch/kernels/dgemm/kernel.py).
 //
 // Replaces the JAX package's Pallas kernel
 //   gemm_kernel <- src/repro/kernels/dgemm/kernel.py:30 matmul_pallas
@@ -16,7 +16,7 @@
 // views of one n x n matrix go in without a copy; every offset is 64-bit
 // (n = 32768 gives 2^30 elements, 4 GiB of float32).  Inputs are float32
 // or bfloat16, the output float32 or bfloat16; the sums are IEEE float32
-// FMAs on the CUDA cores, never TF32.
+// FMAs on the CUDA cores, never TF32 (HPL's residual depends on it).
 //
 // Bound.  At HPL's step-0 update for n = 32768, nb = 256, (32512, 256) @
 // (256, 32256) is 5.37e11 flop: 8.0 ms at 67 TFLOP/s f32, against 8.5 GB
@@ -24,20 +24,30 @@
 // it is bound by operations, and the design aims at FMA throughput.
 //
 // Design.  A 128 x 128 block tile, 256 threads, 8 x 8 outputs per thread
-// held in registers (64 FMAs per shared-memory read of 8 + 8 values), and
-// a k step of 8.  Each k step's tiles go through registers into one of two
-// shared-memory buffers while the other is multiplied, so one barrier per
-// k step suffices.  Global loads are scalar and coalesced (consecutive
-// threads read consecutive elements), which needs no alignment and takes
-// any leading dimension; rows, columns and k beyond the edge read as 0 and
-// are not written, so no dimension need divide a tile.  The A tile is
-// stored transposed (k-major, padded by 4 floats against bank conflicts)
-// so each thread reads its 8 rows as two float4.  A thread owns rows
-// {4ty..4ty+3, 64+4ty..64+4ty+3} and the same pattern of columns in tx, so
-// its shared reads are float4 and a warp's are broadcasts.  The epilogue
-// uses float4 when c is float32, 16-byte aligned and its leading dimension
-// a multiple of 4 (HPL's views are), else scalars.  wgmma, TMA and a
-// tensor-core bf16 path are not used.
+// in registers, a k step of 16 and a ring of 4 shared-memory stages, so
+// three k steps of loads are in flight while one is multiplied and there
+// is one barrier per 1024 FMAs of a thread.
+//   - float32 inputs go global -> shared by cp.async and hold no
+//     registers.  The A tile is stored transposed (k-major, rows padded by
+//     4 floats), each element by a 4-byte cp.async.ca; the B tile, already
+//     k-major, by 16-byte cp.async.cg where y and its leading dimension
+//     are 16-byte aligned (HPL's views are), else by 4-byte copies.  Edges
+//     in m, n and k copy fewer source bytes and zero-fill the rest, so no
+//     dimension need divide a tile and K may be 0.
+//   - bfloat16 inputs go through registers (converted to float32 on the
+//     way): the loads for stage t + 3 are issued before stage t's FMAs and
+//     stored after them.
+//   - Per k each thread reads its 8 A values and 8 B values as four float4
+//     (rows {4ty..4ty+3, 64+4ty..}, columns likewise in tx): 64 FMAs per
+//     4 shared loads, 4 per value, and a warp's reads are broadcasts or
+//     one 128-byte line (no bank conflicts).
+//   - The grid is rasterized in groups of 8 row tiles: the 264 blocks
+//     resident on 132 SMs (two each) share 8 strips of x and ~33 of y in
+//     L2, instead of one strip of x against all of y.  Two resident blocks
+//     per SM let one block's epilogue overlap the other's loads and FMAs.
+// The epilogue uses float4 when c is float32, 16-byte aligned and its
+// leading dimension a multiple of 4, else scalars.  wgmma, TMA and a
+// tensor-core path are not used: they would not keep IEEE f32 sums.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -46,9 +56,14 @@
 
 namespace {
 
-constexpr int kBM = 128, kBN = 128, kBK = 8;
-constexpr int kThreads = 256;           // (kBM / 8) * (kBN / 8)
-constexpr int kPad = 4;
+constexpr int kBM = 128, kBN = 128, kBK = 16;
+constexpr int kStages = 4;
+constexpr int kThreads = 256;               // (kBM / 8) * (kBN / 8)
+constexpr int kALd = kBM + 4;               // As[k][m], padded
+constexpr int kBLd = kBN;                   // Bs[k][n]
+constexpr int kStageFloats = kBK * kALd + kBK * kBLd;
+constexpr int kSmemBytes = kStages * kStageFloats * (int)sizeof(float);
+constexpr int kGroupM = 8;                  // row tiles per raster group
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
@@ -64,50 +79,131 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
   return __float2bfloat16_rn(v);
 }
 
-template <typename TIn, typename TOut, bool kUpdate>
-__global__ void __launch_bounds__(kThreads, 2)
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+// copies src_bytes (0..16) from src and zero-fills the rest of 16 bytes
+__device__ __forceinline__ void cp_async_16(uint32_t dst, const void* src,
+                                            int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(src_bytes));
+}
+// copies src_bytes (0 or 4) from src and zero-fills the rest of 4 bytes
+__device__ __forceinline__ void cp_async_4(uint32_t dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending));
+}
+
+template <typename TIn>
+constexpr int min_blocks() {
+  // bfloat16 stages 16 values per thread in registers: give it room
+  return sizeof(TIn) == 4 ? 2 : 1;
+}
+
+template <typename TIn, typename TOut, bool kUpdate, bool kVecB>
+__global__ void __launch_bounds__(kThreads, min_blocks<TIn>())
 gemm_kernel(const TIn* __restrict__ x, const TIn* __restrict__ y,
             TOut* __restrict__ c, int64_t m, int64_t n, int64_t k,
-            int64_t ldx, int64_t ldy, int64_t ldc, bool vec_c) {
-  __shared__ __align__(16) float As[2][kBK][kBM + kPad];
-  __shared__ __align__(16) float Bs[2][kBK][kBN];
+            int64_t ldx, int64_t ldy, int64_t ldc, int tiles_m, int tiles_n,
+            bool vec_c) {
+  extern __shared__ __align__(16) float smem[];
+  constexpr bool kAsync = std::is_same<TIn, float>::value;
+
+  // rasterized tile order: groups of kGroupM row tiles, column-major inside
+  const int pid = blockIdx.x;
+  const int width = kGroupM * tiles_n;
+  const int first = pid / width * kGroupM;
+  const int gsize = min(tiles_m - first, kGroupM);
+  const int r = pid % width;
+  const int64_t m0 = (int64_t)(first + r % gsize) * kBM;
+  const int64_t n0 = (int64_t)(r / gsize) * kBN;
 
   const int tid = threadIdx.x;
   const int tx = tid % 16, ty = tid / 16;
-  const int64_t m0 = (int64_t)blockIdx.y * kBM;
-  const int64_t n0 = (int64_t)blockIdx.x * kBN;
 
-  // loads: the A tile (kBM x kBK) as rows a_r + 32j, column a_k; the B tile
-  // (kBK x kBN) as rows b_k + 2j, column b_c; j = 0..3.  xp and yp point at
-  // this thread's j = 0 element of the next tiles to load; the row and
-  // column tests are made once, the k test at each step.
-  const int a_r = tid / kBK, a_k = tid % kBK;
-  const int b_k = tid / kBN, b_c = tid % kBN;
-  const TIn* xp = x + (m0 + a_r) * ldx + a_k;
-  const TIn* yp = y + b_k * ldy + n0 + b_c;
-  const int64_t x_j = 32 * ldx, y_j = 2 * ldy, y_step = kBK * ldy;
-  unsigned rows_ok = 0;
+  // A copies: column a_k of rows a_m + 16 j (j < 8); xa points at the next
+  // tile's j = 0 element.  The row tests are made once, the k test per tile.
+  const int a_k = tid % kBK, a_m = tid / kBK;
+  const TIn* xa = x + (m0 + a_m) * ldx + a_k;
+  const int64_t xa_j = 16 * ldx;
+  unsigned a_rows = 0;
 #pragma unroll
-  for (int j = 0; j < 4; ++j)
-    if (m0 + a_r + 32 * j < m) rows_ok |= 1u << j;
-  const bool col_ok = n0 + b_c < n;
-  float ra[4], rb[4];
+  for (int j = 0; j < 8; ++j)
+    if (m0 + a_m + 16 * j < m) a_rows |= 1u << j;
+  // B copies.  16-byte: columns 4 (tid % 32).. of rows tid / 32 and + 8.
+  // Scalar: column tid % 128 of rows tid / 128 + 2 j (j < 8).
+  const int b_k = kVecB ? tid / 32 : tid / kBN;
+  const int b_n = kVecB ? 4 * (tid % 32) : tid % kBN;
+  const TIn* yb = y + b_k * ldy + n0 + b_n;
+  const int64_t left = n - n0 - b_n;        // columns from b_n to the edge
+  const int b_bytes = left >= 4 ? 16 : left > 0 ? 4 * (int)left : 0;
+  const int64_t yb_j = (kVecB ? 8 : 2) * ldy, yb_step = kBK * ldy;
+  int64_t k0_next = 0;
 
-  auto load = [&](int64_t k0) {
+  auto as_of = [&](int s) { return smem + s * kStageFloats; };
+  auto bs_of = [&](int s) { return smem + s * kStageFloats + kBK * kALd; };
+
+  // float32: issue the copies of the next tile into stage s
+  auto load_async = [&](int s) {
+    float* as = as_of(s) + a_k * kALd + a_m;
+    const bool ka = k0_next + a_k < k;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      ra[j] = ((rows_ok >> j) & 1u) && k0 + a_k < k ? to_f32(xp[j * x_j])
-                                                     : 0.f;
-      rb[j] = col_ok && k0 + b_k + 2 * j < k ? to_f32(yp[j * y_j]) : 0.f;
+    for (int j = 0; j < 8; ++j) {
+      const bool ok = ka && ((a_rows >> j) & 1u);
+      cp_async_4(smem_addr(as + 16 * j), ok ? xa + j * xa_j : x, ok ? 4 : 0);
     }
-    xp += kBK;
-    yp += y_step;
-  };
-  auto store = [&](int buf) {
+    float* bs = bs_of(s) + b_k * kBLd + b_n;
+    if constexpr (kVecB) {
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      As[buf][a_k][a_r + 32 * j] = ra[j];
-      Bs[buf][b_k + 2 * j][b_c] = rb[j];
+      for (int j = 0; j < 2; ++j) {
+        const bool ok = k0_next + b_k + 8 * j < k && b_bytes > 0;
+        cp_async_16(smem_addr(bs + 8 * j * kBLd), ok ? yb + j * yb_j : y,
+                    ok ? b_bytes : 0);
+      }
+    } else {
+      const bool col_ok = b_bytes > 0;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const bool ok = col_ok && k0_next + b_k + 2 * j < k;
+        cp_async_4(smem_addr(bs + 2 * j * kBLd), ok ? yb + j * yb_j : y,
+                   ok ? 4 : 0);
+      }
+    }
+    xa += kBK;
+    yb += yb_step;
+    k0_next += kBK;
+  };
+
+  // bfloat16: fetch the next tile into registers, later store it to s
+  float ra[8], rb[8];
+  auto fetch = [&]() {
+    const bool ka = k0_next + a_k < k;
+    const bool col_ok = b_bytes > 0;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      ra[j] = ka && ((a_rows >> j) & 1u) ? to_f32(xa[j * xa_j]) : 0.f;
+      rb[j] = col_ok && k0_next + b_k + 2 * j < k ? to_f32(yb[j * yb_j])
+                                                   : 0.f;
+    }
+    xa += kBK;
+    yb += yb_step;
+    k0_next += kBK;
+  };
+  auto put = [&](int s) {
+    float* as = as_of(s) + a_k * kALd + a_m;
+    float* bs = bs_of(s) + b_k * kBLd + b_n;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      as[16 * j] = ra[j];
+      bs[2 * j * kBLd] = rb[j];
     }
   };
 
@@ -117,21 +213,19 @@ gemm_kernel(const TIn* __restrict__ x, const TIn* __restrict__ y,
 #pragma unroll
     for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
 
-  load(0);
-  store(0);
-  __syncthreads();
-  int buf = 0;
-  for (int64_t k0 = 0; k0 < k; k0 += kBK) {
-    const bool more = k0 + kBK < k;
-    if (more) load(k0 + kBK);           // in flight during the FMAs below
+  auto compute = [&](int s) {
+    const float* as = as_of(s);
+    const float* bs = bs_of(s);
 #pragma unroll
     for (int kk = 0; kk < kBK; ++kk) {
-      const float4 a0 = *reinterpret_cast<const float4*>(&As[buf][kk][4 * ty]);
-      const float4 a1 =
-          *reinterpret_cast<const float4*>(&As[buf][kk][64 + 4 * ty]);
-      const float4 b0 = *reinterpret_cast<const float4*>(&Bs[buf][kk][4 * tx]);
-      const float4 b1 =
-          *reinterpret_cast<const float4*>(&Bs[buf][kk][64 + 4 * tx]);
+      const float4 a0 = *reinterpret_cast<const float4*>(as + kk * kALd +
+                                                         4 * ty);
+      const float4 a1 = *reinterpret_cast<const float4*>(as + kk * kALd + 64 +
+                                                         4 * ty);
+      const float4 b0 = *reinterpret_cast<const float4*>(bs + kk * kBLd +
+                                                         4 * tx);
+      const float4 b1 = *reinterpret_cast<const float4*>(bs + kk * kBLd + 64 +
+                                                         4 * tx);
       const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
       const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
 #pragma unroll
@@ -139,10 +233,42 @@ gemm_kernel(const TIn* __restrict__ x, const TIn* __restrict__ y,
 #pragma unroll
         for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
     }
-    // the other buffer was last read before the previous barrier
-    if (more) store(buf ^ 1);
-    __syncthreads();
-    buf ^= 1;
+  };
+
+  const int64_t tiles_k = (k + kBK - 1) / kBK;
+  if constexpr (kAsync) {
+    // one commit group per tile (empty past the end), so that waiting for
+    // all but the newest kStages - 2 groups means tile t has landed
+#pragma unroll
+    for (int s = 0; s < kStages - 1; ++s) {
+      if (s < tiles_k) load_async(s);
+      cp_async_commit();
+    }
+    for (int64_t t = 0; t < tiles_k; ++t) {
+      cp_async_wait<kStages - 2>();
+      // tile t is visible to all, and every thread is done with tile t - 1,
+      // whose stage the copies below refill
+      __syncthreads();
+      if (t + kStages - 1 < tiles_k) load_async((int)((t + kStages - 1) %
+                                                      kStages));
+      cp_async_commit();
+      compute((int)(t % kStages));
+    }
+  } else {
+#pragma unroll
+    for (int s = 0; s < kStages - 1; ++s) {
+      if (s < tiles_k) {
+        fetch();
+        put(s);
+      }
+    }
+    for (int64_t t = 0; t < tiles_k; ++t) {
+      __syncthreads();
+      const bool more = t + kStages - 1 < tiles_k;
+      if (more) fetch();                  // in flight during the FMAs below
+      compute((int)(t % kStages));
+      if (more) put((int)((t + kStages - 1) % kStages));
+    }
   }
 
 #pragma unroll
@@ -175,19 +301,37 @@ gemm_kernel(const TIn* __restrict__ x, const TIn* __restrict__ y,
   }
 }
 
+template <typename TIn, typename TOut, bool kUpdate, bool kVecB>
+cudaError_t launch_kernel(const void* x, const void* y, void* c, int64_t m,
+                          int64_t n, int64_t k, int64_t ldx, int64_t ldy,
+                          int64_t ldc, cudaStream_t stream) {
+  auto kern = gemm_kernel<TIn, TOut, kUpdate, kVecB>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+  if (err != cudaSuccess) return err;
+  const int64_t tiles_m = (m + kBM - 1) / kBM, tiles_n = (n + kBN - 1) / kBN;
+  if (tiles_m * tiles_n > 0x7fffffff || tiles_n * kGroupM > 0x7fffffff)
+    return cudaErrorInvalidConfiguration;
+  const bool vec_c = sizeof(TOut) == 4 && ldc % 4 == 0 &&
+                     reinterpret_cast<uintptr_t>(c) % 16 == 0;
+  kern<<<(unsigned)(tiles_m * tiles_n), kThreads, kSmemBytes, stream>>>(
+      static_cast<const TIn*>(x), static_cast<const TIn*>(y),
+      static_cast<TOut*>(c), m, n, k, ldx, ldy, ldc, (int)tiles_m,
+      (int)tiles_n, vec_c);
+  return cudaGetLastError();
+}
+
 template <typename TIn, typename TOut, bool kUpdate>
 cudaError_t launch(const void* x, const void* y, void* c, int64_t m,
                    int64_t n, int64_t k, int64_t ldx, int64_t ldy,
                    int64_t ldc, cudaStream_t stream) {
-  const dim3 grid((unsigned)((n + kBN - 1) / kBN),
-                  (unsigned)((m + kBM - 1) / kBM));
-  if (grid.y > 65535u) return cudaErrorInvalidConfiguration;
-  const bool vec_c = sizeof(TOut) == 4 && ldc % 4 == 0 &&
-                     reinterpret_cast<uintptr_t>(c) % 16 == 0;
-  gemm_kernel<TIn, TOut, kUpdate><<<grid, kThreads, 0, stream>>>(
-      static_cast<const TIn*>(x), static_cast<const TIn*>(y),
-      static_cast<TOut*>(c), m, n, k, ldx, ldy, ldc, vec_c);
-  return cudaGetLastError();
+  if constexpr (std::is_same<TIn, float>::value) {
+    if (ldy % 4 == 0 && reinterpret_cast<uintptr_t>(y) % 16 == 0)
+      return launch_kernel<TIn, TOut, kUpdate, true>(x, y, c, m, n, k, ldx,
+                                                     ldy, ldc, stream);
+  }
+  return launch_kernel<TIn, TOut, kUpdate, false>(x, y, c, m, n, k, ldx, ldy,
+                                                  ldc, stream);
 }
 
 template <typename TIn, bool kUpdate>

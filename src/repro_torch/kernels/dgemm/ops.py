@@ -28,7 +28,7 @@ def dgemm(x: torch.Tensor, y: torch.Tensor, *, bm: int | None = None,
     The tile arguments are accepted for parity with the JAX package: each
     (default 256, capped at its dimension) must divide its dimension, as
     ``matmul_pallas`` asserts, but they do not change the result, and the
-    CUDA kernel uses its own 128 x 128 x 8 tile.  ``tuned=True`` raises
+    CUDA kernel uses its own 128 x 128 x 16 tile.  ``tuned=True`` raises
     until the autotuner's slice brings Hopper tile spaces.
     """
     if tuned:

@@ -25,12 +25,19 @@ from repro_torch.kernels._build import library
 LAUNCHES = {"ssd_chunk": 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-# The source's tiles (kTI, kTJ, kTP, kThreads) and limits (kMaxP, kMaxN,
-# kMaxSmem), so that a shape is refused before the library is built.  The
-# library's ssd_chunk_smem_bytes is the source of truth: tests/test_torch_gpu.py
-# and chip_smoke.py hold smem_bytes() and these limits against it.
-TI, TJ, TP, THREADS = 32, 32, 16, 256
-MAX_P, MAX_N = 128, 256             # the kernel's per-thread register tiles
+# The source's tiles (kTI, kTJ, kTP, kTN, kTK, kHG), threads per block
+# (kThreads for float32 x, B and C on the CUDA cores, kTcThreads for
+# bfloat16 on the tensor cores), row strides (kXLd, kWLd, kWsLd, kHsLd;
+# ct_ld, bt_ld, raw_ld below) and limits (kMaxP, kMaxN, kMaxSmem), so that
+# a shape is refused before the library is built.  The library's
+# ssd_chunk_smem_bytes is the source of truth: tests/test_torch_gpu.py and
+# chip_smoke.py hold smem_bytes() and these limits against it.
+TI, TJ, TP, TN, TK = 64, 32, 64, 64, 32
+HEAD_GROUP = 2
+THREADS, TC_THREADS = 128, 256
+XLD, WLD = TP + 4, TI               # float rows of h^T and of W
+WSLD, HSLD = TI + 8, TK + 8         # bf16 rows of W's and h's splits
+MAX_P, MAX_N = 128, 256             # the kernel's stated limits
 MAX_SMEM_BYTES = 232448             # 227 KB: one Hopper block's limit
 
 
@@ -47,31 +54,55 @@ def _lib() -> ctypes.CDLL:
     lib.ssd_chunk_launch.restype = i
     lib.ssd_chunk_error_string.argtypes = [i]
     lib.ssd_chunk_error_string.restype = ctypes.c_char_p
-    lib.ssd_chunk_smem_bytes.argtypes = [i, i, i]
+    lib.ssd_chunk_smem_bytes.argtypes = [i, i, i, i]
     lib.ssd_chunk_smem_bytes.restype = i64
     return lib
 
 
-def smem_bytes(Q: int, P: int, N: int) -> int:
-    """Bytes of shared memory one block takes: ``smem_floats`` in the
-    source."""
-    out_role = TI * (N + 1) + TJ * (N + 1) + TJ * P + TI * (TJ + 1)
-    state_role = TJ * N + TJ * TP
-    return 4 * (2 * Q + THREADS + max(out_role, state_role))
+def _up32(v: int) -> int:
+    return (v + 31) // 32 * 32
 
 
-def admitted_smem_bytes(Q: int, P: int, N: int) -> int:
+def smem_bytes(Q: int, P: int, N: int,
+               dtype: torch.dtype = torch.float32) -> int:
+    """Bytes of shared memory one block takes with x, B and C of
+    ``dtype``: ``layout(Q, N, esize).total`` in the source (the larger of
+    the output and the state role; bfloat16 lays out the tensor-core
+    roles; P does not enter)."""
+    es = 2 if dtype == torch.bfloat16 else 4
+    tc = es == 2
+    npad = (N + 15) // 16 * 16
+    ct_ld, bt_ld = TI + (8 if tc else 4), npad + (8 if tc else 4)
+    raw_ld = TP + 16 // es
+    threads = TC_THREADS if tc else THREADS
+    common = (2 * _up32(4 * HEAD_GROUP * Q) + _up32(4 * threads)
+              + (_up32(4 * (TC_THREADS // 32) * 256) if tc else 0))
+    w_tc = 2 * HEAD_GROUP * 3 * max(TP * HSLD, TJ * WSLD)
+    out_role = (_up32(es * npad * ct_ld) + _up32(es * TJ * bt_ld)
+                + _up32(w_tc if tc else 4 * HEAD_GROUP * TJ * XLD)
+                + _up32(2 * es * HEAD_GROUP * TJ * raw_ld))
+    state_role = (_up32(4 * HEAD_GROUP * Q) + _up32(2 * es * TJ * raw_ld)
+                  + _up32(2 * es * HEAD_GROUP * TJ * raw_ld)
+                  + _up32(2 * HEAD_GROUP * 3 * TJ * WSLD if tc else 0))
+    return common + max(out_role, state_role)
+
+
+def admitted_smem_bytes(Q: int, P: int, N: int,
+                        dtype: torch.dtype = torch.float32) -> int:
     """``smem_bytes`` where this wrapper admits the shape, else -1: what
     ``library_smem_bytes`` must return."""
     if min(Q, P, N) <= 0 or P > MAX_P or N > MAX_N:
         return -1
-    return -1 if smem_bytes(Q, P, N) > MAX_SMEM_BYTES else smem_bytes(Q, P, N)
+    b = smem_bytes(Q, P, N, dtype)
+    return -1 if b > MAX_SMEM_BYTES else b
 
 
-def library_smem_bytes(Q: int, P: int, N: int) -> int:
+def library_smem_bytes(Q: int, P: int, N: int,
+                       dtype: torch.dtype = torch.float32) -> int:
     """The built library's ``ssd_chunk_smem_bytes``: bytes of shared memory
-    a launch at (Q, P, N) takes, or -1 where the launch is refused."""
-    return int(_lib().ssd_chunk_smem_bytes(Q, P, N))
+    a launch at (Q, P, N) with x, B and C of ``dtype`` takes, or -1 where
+    the launch is refused."""
+    return int(_lib().ssd_chunk_smem_bytes(Q, P, N, _DTYPE_CODE[dtype]))
 
 
 def _check_shape(name: str, t: torch.Tensor, shape: tuple) -> None:
@@ -124,9 +155,10 @@ def ssd_chunk(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     if P > MAX_P or N > MAX_N:
         raise ValueError(f"the kernel takes P <= {MAX_P} and N <= {MAX_N}, "
                          f"got P={P}, N={N}")
-    if smem_bytes(Q, P, N) > MAX_SMEM_BYTES:
-        raise ValueError(f"a chunk of Q={Q} needs {smem_bytes(Q, P, N)} "
-                         f"bytes of shared memory, over {MAX_SMEM_BYTES}")
+    if smem_bytes(Q, P, N, x.dtype) > MAX_SMEM_BYTES:
+        raise ValueError(f"a chunk of Q={Q} needs "
+                         f"{smem_bytes(Q, P, N, x.dtype)} bytes of shared "
+                         f"memory, over {MAX_SMEM_BYTES}")
     if x.numel() == 0 or N == 0:
         raise ValueError(f"empty chunk: x {tuple(x.shape)}, N={N}")
     dev = _check_cuda(x=x, dt=dt, A=A, B_mat=B_mat, C_mat=C_mat, h=h)

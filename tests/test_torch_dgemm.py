@@ -78,7 +78,7 @@ def test_ref_out_dtype():
 
 
 @pytest.mark.parametrize("lookahead", [0, 1])
-@pytest.mark.parametrize("k0", [16, 17])
+@pytest.mark.parametrize("k0", [16, 17, 19])
 def test_update_ref_on_strided_views(k0, lookahead):
     """HPL's trailing update on views of one matrix (row stride n): only
     the trailing window changes, by the product of the two panels."""

@@ -119,7 +119,7 @@ GEMM_TOL = {torch.float32: dict(rtol=2e-5, atol=1e-3),
             torch.bfloat16: dict(rtol=0.1, atol=0.1)}
 GEMM_SHAPES = [(128, 128, 128), (256, 128, 384), (512, 256, 128),
                (1, 1, 1), (130, 67, 259), (257, 129, 3), (5, 300, 0),
-               (1000, 36, 256)]
+               (1000, 36, 256), (64, 64, 1), (200, 96, 7), (300, 260, 17)]
 
 
 def _gemm_operands(m, n, k, dtype, device, seed=0):
@@ -169,6 +169,32 @@ def test_gemm_update_kernel_on_views(cuda, k0, lookahead):
             fn(a22, l21, u12)
     torch.testing.assert_close(got, want, **GEMM_TOL[torch.float32])
     assert torch.equal(got[:k1], a[:k1]) and torch.equal(got[:, :k1], a[:, :k1])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("off", [0, 1, 2, 3])
+def test_gemm_kernel_on_views_of_any_alignment(cuda, off, dtype):
+    """x and y as views whose first element and row stride are 16-byte
+    aligned (off = 0: the 16-byte copies) or only element aligned; a
+    ragged last 16-byte chunk of y's rows (width 38)."""
+    g = torch.Generator().manual_seed(off)
+    big = torch.randn(300, 300, generator=g).to(cuda, dtype)
+    x = big[off:off + 70, off:off + 19]
+    y = big[off + 100:off + 119, off:off + 38]
+    got = G.dgemm(x, y, torch.float32)
+    torch.testing.assert_close(got, gref.dgemm_ref(x, y, torch.float32),
+                               **GEMM_TOL[dtype])
+
+
+def test_gemm_launches_on_the_253_launch_path(cuda):
+    """linpack_run at n = 2048, nb = 16, lookahead 1 has HPL's n = 32768,
+    nb = 256 step count (128 panels): 127 next-panel and 126 rest updates."""
+    from repro_torch.configs.hpl import HPLConfig
+    from repro_torch.hpl import linpack_run
+    before = G.LAUNCHES["dgemm"]
+    res = linpack_run(HPLConfig(n=2048, block=16, lookahead=1))
+    assert G.LAUNCHES["dgemm"] == before + 253
+    assert res.passed and res.residual < 16
 
 
 def test_ops_dgemm_on_the_card_launches_the_kernel(cuda):
@@ -256,7 +282,8 @@ def test_rmsnorm_kernel_refuses_mixed_devices(cuda):
 # float32 and bfloat16
 SSD_SHAPES = [(2, 16, 3, 8, 4), (1, 32, 2, 16, 8), (3, 8, 4, 4, 16),
               (2, 32, 8, 16, 16), (1, 45, 2, 20, 33), (2, 70, 2, 64, 128),
-              (1, 1, 1, 1, 1), (1, 300, 1, 128, 7)]
+              (1, 1, 1, 1, 1), (1, 300, 1, 128, 7), (2, 33, 3, 128, 256),
+              (1, 44, 5, 64, 128), (3, 1, 3, 64, 128)]
 
 
 def _ssd_inputs(B, Q, H, P, N, dtype, device, strided=False):
@@ -291,6 +318,23 @@ def test_ssd_chunk_kernel_matches_plain(cuda, B, Q, H, P, N, dtype,
     torch.testing.assert_close(hn, hr, rtol=1e-4, atol=1e-4)
 
 
+@pytest.mark.parametrize("strided", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Q,H,P,N", [(4, 256, 32, 64, 128),
+                                       (1, 256, 3, 128, 256),
+                                       (2, 256, 5, 20, 33)])
+def test_ssd_chunk_kernel_on_a_full_chunk(cuda, B, Q, H, P, N, dtype,
+                                          strided):
+    """A whole chunk of the serve path (Q = 256), with H not a multiple
+    of the head group and the widest P and N: at Q = 256 the f32 sums are
+    themselves off an f64 evaluation by up to ~1e-5 of max|y|, so the
+    absolute tolerance scales with max|y| (chip_smoke.py's path check)."""
+    args = _ssd_inputs(B, Q, H, P, N, dtype, cuda, strided)
+    for got, want in zip(SSK.ssd_chunk(*args), ssref.ssd_chunk_ref(*args)):
+        torch.testing.assert_close(got, want, rtol=1e-4,
+                                   atol=1e-5 * float(want.abs().max()))
+
+
 def test_ops_ssd_chunk_on_the_card_launches_the_kernel(cuda):
     args = _ssd_inputs(2, 16, 3, 8, 4, torch.float32, cuda)
     before = SSK.LAUNCHES["ssd_chunk"]
@@ -298,13 +342,16 @@ def test_ops_ssd_chunk_on_the_card_launches_the_kernel(cuda):
     assert SSK.LAUNCHES["ssd_chunk"] == before + 1
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("Q,P,N", [
     (256, 64, 128), (32, 16, 16), (1, 1, 1), (300, 128, 256),
-    (8000, 128, 256), (30000, 8, 4), (16, 129, 4), (16, 8, 257)])
-def test_ssd_chunk_limits_match_the_library(cuda, Q, P, N):
+    (4000, 128, 256), (8000, 128, 256), (30000, 8, 4), (16, 129, 4),
+    (16, 8, 257)])
+def test_ssd_chunk_limits_match_the_library(cuda, Q, P, N, dtype):
     """The wrapper's copy of the kernel's tiles and limits refuses and
     sizes exactly what the built library does."""
-    assert SSK.library_smem_bytes(Q, P, N) == SSK.admitted_smem_bytes(Q, P, N)
+    assert (SSK.library_smem_bytes(Q, P, N, dtype)
+            == SSK.admitted_smem_bytes(Q, P, N, dtype))
 
 
 def test_ssd_chunk_kernel_refuses_mixed_devices(cuda):

@@ -123,25 +123,57 @@ def test_cuda_wrapper_checks_before_building(no_build, over, err, match):
 
 @pytest.mark.parametrize("shape, match", [
     (dict(P=129), "P <= 128"), (dict(N=257), "N <= 256"),
-    (dict(Q=30000), "shared memory"), (dict(Q=0), "empty chunk")])
+    (dict(Q=30000), "shared memory"), (dict(Q=0), "empty chunk"),
+    # float32 lays out the CUDA-core roles, which need more shared memory
+    # than the bfloat16 (tensor-core) ones at this chunk
+    (dict(Q=5000, P=128, N=256), "shared memory")])
 def test_cuda_wrapper_refuses_what_the_kernel_cannot_hold(no_build, shape,
                                                           match):
     with pytest.raises(ValueError, match=match):
         K.ssd_chunk(**_args(**shape))
 
 
+@pytest.mark.parametrize("shape, dtype", [
+    (dict(Q=5000, P=128, N=256), torch.bfloat16),
+    (dict(Q=7000, P=64, N=128), torch.float32)])
+def test_cuda_wrapper_limits_follow_the_dtype(no_build, shape, dtype):
+    """A chunk one dtype's layout holds and the other's does not: the
+    wrapper admits it (and then refuses the CPU tensors) for the one and
+    refuses its shared memory for the other."""
+    other = torch.float32 if dtype == torch.bfloat16 else torch.bfloat16
+    assert K.admitted_smem_bytes(shape["Q"], shape["P"], shape["N"],
+                                 dtype) > 0
+    assert K.admitted_smem_bytes(shape["Q"], shape["P"], shape["N"],
+                                 other) == -1
+    args = _args(**shape)
+    for name in ("x", "B_mat", "C_mat"):
+        args[name] = args[name].to(dtype)
+    with pytest.raises(ValueError, match="CUDA device"):
+        K.ssd_chunk(**args)
+    for name in ("x", "B_mat", "C_mat"):
+        args[name] = args[name].to(other)
+    with pytest.raises(ValueError, match="shared memory"):
+        K.ssd_chunk(**args)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("Q,P,N, fits", [
     (256, 64, 128, True), (16, 129, 4, False), (16, 8, 257, False),
-    (30000, 8, 4, False), (0, 8, 4, False)])
-def test_admitted_smem_bytes_follows_the_wrapper_limits(Q, P, N, fits):
-    want = K.smem_bytes(Q, P, N) if fits else -1
-    assert K.admitted_smem_bytes(Q, P, N) == want
+    (30000, 8, 4, False), (0, 8, 4, False), (4000, 128, 256, True),
+    (8000, 128, 256, False)])
+def test_admitted_smem_bytes_follows_the_wrapper_limits(Q, P, N, fits,
+                                                        dtype):
+    want = K.smem_bytes(Q, P, N, dtype) if fits else -1
+    assert K.admitted_smem_bytes(Q, P, N, dtype) == want
 
 
 def test_path_shape_fits_one_block():
-    """The serve path's chunk (Q = 256, P = 64, N = 128) fits the 227 KB a
-    Hopper block may use; the JAX kernel's whole (b, h) working set would
-    not."""
+    """The serve path's chunk (Q = 256, P = 64, N = 128, bf16) fits the
+    227 KB a Hopper block may use, twice over on one SM's 228 KB (1 KB of
+    it reserved per block); the JAX kernel's whole (b, h) working set
+    would not fit one block."""
+    path = K.smem_bytes(256, 64, 128, torch.bfloat16)
+    assert 2 * (path + 1024) <= 228 * 1024
     assert K.smem_bytes(256, 64, 128) <= K.MAX_SMEM_BYTES
     whole = 4 * (256 * 64 + 2 * 256 * 128 + 256 * 256)
     assert whole > K.MAX_SMEM_BYTES
