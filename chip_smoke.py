@@ -44,11 +44,22 @@ Phases (one line each, or a few):
      chunk), on the CPU (plain versions) and on the card (kernels), which
      must pick the same greedy tokens over 8 steps;
  12. the new kernels' times beside their bounds, their plain versions'
-     and the library's (``torch.nn.functional.rms_norm``; none computes an
-     SSD chunk); the prefill's time and the decode rate; one prefill and
-     16 decode steps under torch.profiler (the device's busy share, its
-     largest activities, the SSD-chunk kernel's share of the prefill's
-     device time, its activities per decode step).
+     and the library's (``torch.nn.functional.rms_norm``, at both norms'
+     shapes; none computes an SSD chunk); the prefill's time and the
+     decode rate; one prefill and 16 decode steps under torch.profiler
+     (the device's busy share, its largest activities, the SSD-chunk
+     kernel's share of the prefill's device time, its activities per
+     decode step);
+ 13. energy: the card's watts (nvidia-smi's power.draw and SM clock every
+     100 ms over 3 s) idle, under a loop of the thermal Schur normal op
+     A^dagger A on the even-odd kernel (HBM-bound) and under a loop of
+     HPL's step-0 update on the GEMM kernel (compute-bound), each beside
+     the H100 table's constant; ``measured_lqcd_calibration`` at 32^3 x 8
+     on the card; then ``cluster.run`` of the thermal EO_MIXED solve
+     (``LQCDSolveWorkload`` with that calibration) and HPL at n = 32768
+     (``HPLWorkload``) on the card, with exact launch counts and each
+     result's joules held to its trace's integral; nvidia-smi samples the
+     card's watts over that run.
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Any failure raises: the script then
 exits non-zero and prints no result.  It needs a CUDA device and the
@@ -59,6 +70,7 @@ from __future__ import annotations
 import copy
 import json
 import re
+import signal
 import subprocess
 import sys
 import time
@@ -98,6 +110,9 @@ CUT_SEED = 37                   # see phase 11
 # an NVIDIA H100 80GB HBM3; held at two ulps of the largest logit
 CUT_LOGIT_TOL = 0.0625
 PROFILE_DECODE_STEPS = 16
+WATT_LEAD_S, WATT_WINDOW_S = 1.0, 3.0   # see phase 13
+WATT_QUERY = ["nvidia-smi", "--query-gpu=power.draw,clocks.sm",
+              "--format=csv,noheader,nounits", "-lms", "100"]
 
 
 def check(ok: bool, what: str) -> None:
@@ -205,6 +220,75 @@ def print_activity(what: str, wall: float, busy: dict, count: dict,
               f"{name[:90]}")
 
 
+class PowerSamples:
+    """``nvidia-smi`` sampling power.draw and the SM clock every 100 ms
+    for as long as the ``with`` block runs; ``watts`` and ``clocks`` hold
+    the samples afterwards.  A sampler that ends early or prints anything
+    else fails the run."""
+
+    def __enter__(self) -> "PowerSamples":
+        self.smi = subprocess.Popen(WATT_QUERY, stdout=subprocess.PIPE,
+                                    stderr=subprocess.PIPE, text=True)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        alive = self.smi.poll() is None
+        # SIGINT, as a Ctrl-C ends nvidia-smi's loop: it flushes its output
+        self.smi.send_signal(signal.SIGINT)
+        try:
+            out, err = self.smi.communicate(timeout=30)
+        except subprocess.TimeoutExpired:
+            self.smi.kill()
+            out, err = self.smi.communicate(timeout=30)
+        if exc[0] is not None:
+            return
+        check(alive, f"nvidia-smi sampled the whole window (exit "
+                     f"{self.smi.returncode}: {err[:200]!r})")
+        rows = [line.split(",") for line in out.strip().splitlines()]
+        check(len(rows) >= 10 and all(len(r) == 2 for r in rows),
+              f"nvidia-smi gave power.draw, clocks.sm samples: {out[:200]!r} "
+              f"{err[:200]!r}")
+        self.watts = [float(r[0]) for r in rows]
+        self.clocks = [float(r[1]) for r in rows]
+
+    @property
+    def mean_w(self) -> float:
+        return sum(self.watts) / len(self.watts)
+
+
+def read_watts(fn=None) -> tuple[float, int, float, float]:
+    """Run ``fn()`` in a loop (or leave the card idle) for WATT_LEAD_S,
+    then for WATT_WINDOW_S more with ``nvidia-smi`` sampling beside it.
+    Returns the mean watts, the sample count, the mean SM clock (MHz) and
+    the calls per second in the window.  The host keeps at most two
+    batches of 8 calls queued ahead of the card, so the card never drains
+    between them."""
+    import torch
+
+    def loop(seconds: float) -> int:
+        t0, n, marks = time.perf_counter(), 0, []
+        while time.perf_counter() - t0 < seconds:
+            if fn is None:
+                time.sleep(0.01)
+                continue
+            fn()
+            n += 1
+            if n % 8 == 0:
+                marks.append(torch.cuda.Event())
+                marks[-1].record()
+                if len(marks) > 2:
+                    marks.pop(0).synchronize()
+        return n
+
+    torch.cuda.synchronize()
+    loop(WATT_LEAD_S)
+    with PowerSamples() as ps:
+        t0 = time.perf_counter()
+        rate = loop(WATT_WINDOW_S) / (time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    return ps.mean_w, len(ps.watts), sum(ps.clocks) / len(ps.clocks), rate
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -217,6 +301,7 @@ def main() -> int:
     import dataclasses
 
     from repro_torch import convert
+    from repro_torch.cluster import HPLWorkload, LQCDSolveWorkload, run
     from repro_torch.config import full_config
     from repro_torch.configs.lcsc_lqcd import (EO_MIXED_SOLVER, PLAIN_SOLVER,
                                                THERMAL_LATTICE)
@@ -232,8 +317,11 @@ def main() -> int:
     from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
     from repro_torch.kernels.ssd_chunk import kernel as SK
     from repro_torch.kernels.ssd_chunk.ref import ssd_chunk_ref
-    from repro_torch.lqcd import (dslash_flops_per_site, eo_pack, pack_gauge,
-                                  solve_dirac, su3_project)
+    from repro_torch.lqcd import (dslash_flops_per_site, eo_pack,
+                                  measured_lqcd_calibration, pack_gauge,
+                                  schur_matvec, solve_dirac, su3_project)
+    from repro_torch.lqcd.eo import schur_matvec_dagger
+    from repro_torch.power import model as PM
     from repro_torch.models import init_params
     from repro_torch.runtime.steps import (grow_decode_cache,
                                            make_decode_step,
@@ -250,6 +338,7 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True, check=True,
         timeout=60).stdout.strip().splitlines()[0]
     print(smi)
+    power_limit_w = float(smi.split(",")[-1].strip().split()[0])
     print(f"[1] card: {kind}, torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}; TF32 off for matmul and cuDNN (the plain "
           f"versions must run in full f32)")
@@ -765,13 +854,17 @@ def main() -> int:
     b_ms, b_by = bound([x, w, x], x.numel(), 4)
     xn, wn = rms_path["norm1"]
     bn_ms, _ = bound([xn, wn, xn], xn.numel(), 4)
+    library_n1_ms = timed_ms(lambda: torch.nn.functional.rms_norm(
+        xn, (xn.shape[1],), wn, eps=1e-6), reps=50, warmup=5)
     print(f"[12] rmsnorm ({rows}, {x.shape[1]}) f32 x, bf16 scale (the "
           f"gated norm): {rms_ms['gated'] * 1e3:.1f} us, "
           f"{100 * b_ms / rms_ms['gated']:.1f}% of the {b_ms * 1e3:.1f} us "
           f"{b_by} bound; plain {plain_ms * 1e3:.1f} us; library "
           f"F.rms_norm {library_ms * 1e3:.1f} us.  ({rows}, {xn.shape[1]}) "
           f"bf16 (norm1, final_norm): {rms_ms['norm1'] * 1e3:.1f} us, "
-          f"{100 * bn_ms / rms_ms['norm1']:.1f}% of {bn_ms * 1e3:.1f} us")
+          f"{100 * bn_ms / rms_ms['norm1']:.1f}% of {bn_ms * 1e3:.1f} us; "
+          f"library F.rms_norm {library_n1_ms * 1e3:.1f} us, "
+          f"{100 * bn_ms / library_n1_ms:.1f}% of it")
     records.append({"name": "rmsnorm", "route": "cuda", "source": RMS_SOURCE,
                     "replaces": RMS_REPLACES,
                     "launches": lm_launches["rmsnorm"],
@@ -857,7 +950,115 @@ def main() -> int:
     print_activity(f"{PROFILE_DECODE_STEPS} decode steps", wall, busy, count,
                    steps=PROFILE_DECODE_STEPS)
 
-    print(f"[12] chip_smoke.py took {time.perf_counter() - t_start:.1f} s "
+    # 13. energy: the card's watts, the LQCD calibration on the card, and
+    # the LQCD and HPL workloads through cluster.run
+    del cache, logits, params, batch
+    torch.cuda.empty_cache()
+    t13 = time.perf_counter()
+    psi_e = eo_pack(psi, 0)
+
+    def normal_op():
+        schur_matvec_dagger(U_e, U_o, schur_matvec(U_e, U_o, psi_e, KAPPA),
+                            KAPPA)
+
+    a_big = randn(HPL_N, HPL_N)
+    l21, u12, a22 = a_big[HPL_NB:, :HPL_NB], \
+        a_big[:HPL_NB, 2 * HPL_NB:], a_big[HPL_NB:, 2 * HPL_NB:]
+    table = {"idle": PM.H100_IDLE_W, "A^dagger A (HBM-bound)":
+             PM.H100_MEM_BOUND_W, "step-0 GEMM (compute-bound)":
+             PM.H100_COMPUTE_BOUND_W}
+    loads = {"idle": None, "A^dagger A (HBM-bound)": normal_op,
+             "step-0 GEMM (compute-bound)":
+             lambda: G.dgemm_update_(a22, l21, u12)}
+    op_flops = 2 * THERMAL_LATTICE.volume * dslash_flops_per_site()
+    watts, rates = {}, {}
+    for what, fn in loads.items():
+        w, n, clock, rates[what] = read_watts(fn)
+        watts[what] = w
+        print(f"[13] {what}: {w:.2f} W mean of {n} samples, SM clock "
+              f"{clock:.0f} MHz, {rates[what]:.1f} calls/s in the "
+              f"{WATT_WINDOW_S:.0f} s window; {w / table[what]:.3f} x the "
+              f"table's {table[what]:.2f} W ({PM.H100_MEASURED_ON})")
+    w_idle, w_mem, w_gemm = watts.values()
+    mem_rate = rates["A^dagger A (HBM-bound)"] * op_flops / 1e9
+    check(w_idle < w_mem <= 1.05 * power_limit_w,
+          f"idle {w_idle:.1f} W < HBM-bound {w_mem:.1f} W <= 1.05 x the "
+          f"{power_limit_w} W limit")
+    check(w_gemm <= 1.05 * power_limit_w,
+          f"compute-bound {w_gemm:.1f} W <= 1.05 x the {power_limit_w} W "
+          f"limit")
+    del a_big, l21, u12, a22
+    torch.cuda.empty_cache()
+
+    K.reset_launches()
+    reps = 5
+    cal = measured_lqcd_calibration(THERMAL_LATTICE.shape, reps=reps,
+                                    device="cuda")
+    print(f"[13] measured_lqcd_calibration({THERMAL_LATTICE.shape}, "
+          f"device='cuda'): {reps} A^dagger A in {cal.wall_s * 1e3:.3f} ms, "
+          f"{cal.gflops:.1f} GFLOP/s, {cal.eff_bw_gbs:.1f} GB/s, busy "
+          f"{cal.busy_w:.2f} W (the table's), {cal.gflops_per_w:.4f} "
+          f"GFLOP/s/W; with the HBM-bound watts read above "
+          f"{cal.gflops / w_mem:.4f} GFLOP/s/W; launches {dict(K.LAUNCHES)}."
+          f"  The watts window's A^dagger A loop ran at {mem_rate:.1f} "
+          f"GFLOP/s, {mem_rate / w_mem:.4f} GFLOP/s/W")
+    check(K.LAUNCHES["dslash_eo_split"] == 4 * (reps + 1)
+          and K.LAUNCHES["dslash_split"] == 0,
+          "the calibration launched 4 EO hops per A^dagger A, warm-up "
+          "included")
+    check(cal.source == "measured" and cal.gflops > 0
+          and abs(cal.energy_j - cal.busy_w * cal.wall_s)
+          <= 1e-9 * cal.energy_j, "calibration joules = busy W x wall")
+
+    hpl_cfg = HPLConfig(n=HPL_N, block=HPL_NB)
+    steps = hpl_cfg.n // hpl_cfg.block
+    for mod in (K, G):
+        mod.reset_launches()
+    t0 = time.perf_counter()
+    with PowerSamples() as run_w:
+        res = run([LQCDSolveWorkload(lattice=THERMAL_LATTICE,
+                                     calibration=cal),
+                   HPLWorkload(cfg=hpl_cfg)])
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    e_launches = {**K.LAUNCHES, **G.LAUNCHES}
+    lq, hpl = res.results
+    it, outer = lq.details["iters"], lq.details["outer_iters"]
+    want = {"dslash_eo_split": 4 * it + 4 * outer + 2, "dslash_split": 1,
+            "dgemm": (steps - 1) + (steps - 2 if hpl_cfg.lookahead else 0)}
+    for r in res.results:
+        t_end = float(r.power_trace.t[-1])
+        integral = r.power_trace.energy_j(t0=t_end - r.wall_s, t1=t_end)
+        print(f"[13] {r.kind} at {r.details['op_f_mhz']:.0f} MHz "
+              f"(its placement's point): {r.perf_gflops:.2f} GFLOP/s over "
+              f"{r.wall_s:.6f} s, {r.energy_j:.4f} J, "
+              f"{r.gflops_per_w:.4f} GFLOP/s/W; the trace's integral over "
+              f"that window {integral:.4f} J")
+        check(abs(r.energy_j - integral) <= 1e-9 * integral,
+              f"{r.kind} joules = its trace's integral over its window")
+    print(f"[13] the LQCD solve: {it} inner normal ops + {outer} outer, "
+          f"rel. residual {lq.details['rel_residual']:.3e}, converged "
+          f"{lq.details['converged']}; HPL scaled residual "
+          f"{hpl.details['residual']:.4e}, passed {hpl.details['passed']}, "
+          f"energy plan {float(hpl.power_trace.aux['freq_scale'][-1]):.3f} "
+          f"x clock at {float(hpl.power_trace.components['chip'][-1]):.2f} "
+          f"W; launches {e_launches} (want {want}); run() took {wall:.2f} s")
+    print(f"[13] nvidia-smi over run(): {run_w.mean_w:.2f} W mean of "
+          f"{len(run_w.watts)} samples (max {max(run_w.watts):.2f} W); HPL's "
+          f"{hpl.perf_gflops:.2f} GFLOP/s at that draw is "
+          f"{hpl.perf_gflops / run_w.mean_w:.4f} GFLOP/s/W (the plan's "
+          f"watts give {hpl.gflops_per_w:.4f})")
+    check(lq.details["converged"] and lq.details["rel_residual"] <= 1e-6,
+          "the workload's solve converged")
+    check(hpl.details["passed"], "the workload's HPL passed")
+    check(e_launches == want, f"launch counts on the energy path {want}")
+    l3 = res.efficiency(3)
+    print(f"[13] the merged L-CSC trace ({res.schedule.topology.n_nodes} "
+          f"nodes, modelled): makespan {res.makespan:.1f} s, L3 "
+          f"{l3.mflops_per_w:.1f} MFLOPS/W at {l3.avg_power_w:.0f} W; "
+          f"phase 13 took {time.perf_counter() - t13:.1f} s")
+
+    print(f"[13] chip_smoke.py took {time.perf_counter() - t_start:.1f} s "
           f"in all")
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {

@@ -1,14 +1,14 @@
 """Configuration of the PyTorch/CUDA port.
 
-Copies of the JAX package's ``SolverConfig``, model dataclasses and
-architecture registry: the port keeps its own so that it imports nothing
-of the reference package.
+Copies of the JAX package's ``SolverConfig``, ``EnergyConfig``, model
+dataclasses and architecture registry: the port keeps its own so that it
+imports nothing of the reference package.
 """
 from __future__ import annotations
 
 import importlib
 from dataclasses import dataclass, replace
-from typing import Callable, Dict, List
+from typing import Callable, Dict, List, Tuple
 
 
 @dataclass(frozen=True)
@@ -41,6 +41,16 @@ class SolverConfig:
     @property
     def mixed_precision(self) -> bool:
         return self.inner_dtype not in ("none", "", "float32")
+
+
+@dataclass(frozen=True)
+class EnergyConfig:
+    """Energy-plan settings (the paper's technique, C3/C5)."""
+
+    enabled: bool = True
+    mode: str = "efficiency"      # performance | efficiency
+    max_perf_loss: float = 0.015  # paper: D-slash loses <1.5%
+    freq_grid: Tuple[float, ...] = tuple(round(0.5 + 0.025 * i, 3) for i in range(21))
 
 
 # ---------------------------------------------------------------------------

@@ -26,3 +26,8 @@ from repro_torch.lqcd.eo import (  # noqa: F401
     pack_gauge,
     schur_matvec,
 )
+from repro_torch.lqcd.multichip_eo import (  # noqa: F401
+    LQCDCalibration,
+    analytic_lqcd_calibration,
+    measured_lqcd_calibration,
+)

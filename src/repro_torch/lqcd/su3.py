@@ -57,6 +57,22 @@ def random_su3_field(gen: torch.Generator,
     return random_su3(gen, (4,) + tuple(lattice_shape), device)
 
 
+def random_field_and_source(lattice_shape: Tuple[int, int, int, int],
+                            seed: int, device="cuda"
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A random gauge field (4, X, Y, Z, T, 3, 3) and a complex Gaussian
+    source (X, Y, Z, T, 4, 3), both complex64, drawn in that order from a
+    ``torch.Generator`` on ``device`` seeded with ``seed``: the fields the
+    LQCD workload solves and the calibration times."""
+    dev = resolve_device(device)
+    shape = tuple(int(s) for s in lattice_shape)
+    gen = torch.Generator(dev).manual_seed(seed)
+    U = random_su3_field(gen, shape, dev)
+    b = torch.complex(torch.randn(shape + (4, 3), generator=gen, device=dev),
+                      torch.randn(shape + (4, 3), generator=gen, device=dev))
+    return U, b
+
+
 def unitarity_defect(u: torch.Tensor) -> torch.Tensor:
     """max |U U† − 1| — 0 for exact SU(3)."""
     eye = torch.eye(3, dtype=u.dtype, device=u.device)

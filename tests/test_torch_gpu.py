@@ -397,3 +397,71 @@ def test_mamba2_serve_on_the_card_matches_the_cpu(cuda, dtype):
         lc, cc = decode(cpu, tok, cc)
         lg, cg = decode(card, tok.to(cuda), cg)
     assert int(cg["pos"]) == 45 + 4
+
+
+# -- the energy path: the calibration and the Workload adapters on the card
+
+def test_measured_calibration_on_the_card(cuda):
+    from repro_torch.lqcd import measured_lqcd_calibration
+    from repro_torch.power.model import H100_MEM_BOUND_W
+    before = dict(K.LAUNCHES)
+    cal = measured_lqcd_calibration((8, 8, 8, 8), reps=3, device="cuda")
+    # 4 EO hops per A^dagger A, the warm-up application included
+    assert K.LAUNCHES["dslash_eo_split"] == before["dslash_eo_split"] + 16
+    assert K.LAUNCHES["dslash_split"] == before["dslash_split"]
+    assert cal.source == "measured" and cal.n_devices == 1
+    assert cal.gflops > 0 and cal.eff_bw_gbs > 0
+    assert cal.busy_w == H100_MEM_BOUND_W
+    assert cal.energy_j == pytest.approx(cal.busy_w * cal.wall_s, rel=1e-9)
+    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
+        measured_lqcd_calibration((8, 8, 8, 8), mesh=object())
+
+
+def test_lqcd_workload_on_the_card_matches_the_cpu(cuda, monkeypatch):
+    """The CPU's field on both devices: the card's solve goes through both
+    D-slash kernels, as often as its iterations imply."""
+    from repro_torch.cluster import workload as W
+    from repro_torch.lqcd.su3 import random_field_and_source
+    from repro_torch.power.model import OperatingPoint
+
+    def cpu_field(shape, seed, device):
+        U, b = random_field_and_source(shape, seed, "cpu")
+        return U.to(device), b.to(device)
+
+    monkeypatch.setattr(W, "random_field_and_source", cpu_field)
+    op = OperatingPoint.green500()
+    want = W.LQCDSolveWorkload(lattice=TL.SMOKE_LATTICE,
+                               device="cpu").execute(op)
+    before = dict(K.LAUNCHES)
+    got = W.LQCDSolveWorkload(lattice=TL.SMOKE_LATTICE).execute(op)
+    it, outer = got.details["iters"], got.details["outer_iters"]
+    assert got.details["converged"] and got.details["rel_residual"] <= 1e-6
+    assert abs(it - want.details["iters"]) <= 2
+    assert K.LAUNCHES["dslash_eo_split"] == \
+        before["dslash_eo_split"] + 4 * it + 4 * outer + 2
+    assert K.LAUNCHES["dslash_split"] == before["dslash_split"] + 1
+    t_end = float(got.power_trace.t[-1])
+    assert got.energy_j == pytest.approx(
+        got.power_trace.energy_j(t0=t_end - got.wall_s, t1=t_end), rel=1e-9)
+
+
+def test_hpl_workload_and_run_on_the_card(cuda):
+    from repro_torch.cluster import HPLWorkload, LQCDSolveWorkload, run
+    from repro_torch.configs.hpl import HPLConfig
+    from repro_torch.lqcd import measured_lqcd_calibration
+    cal = measured_lqcd_calibration((8, 8, 8, 8), device="cuda")
+    cfg = HPLConfig(n=512, block=64)
+    steps = cfg.n // cfg.block
+    before = G.LAUNCHES["dgemm"]
+    res = run([LQCDSolveWorkload(lattice=TL.SMOKE_LATTICE, calibration=cal),
+               HPLWorkload(cfg=cfg)])
+    assert G.LAUNCHES["dgemm"] == before + (steps - 1) + (steps - 2)
+    lq, hpl = res.results
+    assert lq.details["converged"] and hpl.details["passed"]
+    assert lq.details["calibration_source"] == "measured"
+    assert lq.energy_j == pytest.approx(cal.busy_w * lq.wall_s, rel=1e-9)
+    for r in res.results:
+        t_end = float(r.power_trace.t[-1])
+        assert r.energy_j == pytest.approx(
+            r.power_trace.energy_j(t0=t_end - r.wall_s, t1=t_end), rel=1e-9)
+        assert r.gflops_per_w > 0
