@@ -6,11 +6,15 @@ stride may exceed d) and a ``w`` (d,), each float32 or bfloat16.  It
 checks its inputs before it loads the library, allocates the output with
 ``torch.empty``, launches on the current CUDA stream without
 synchronising, raises if the launch was refused, and counts the launch in
-``LAUNCHES``.  It takes CUDA tensors only: the plain version for the CPU
-is in ``ref.py``.
+``LAUNCHES``, and by shape in ``SHAPE_LAUNCHES``.  It takes CUDA tensors
+only: the plain version for the CPU is in ``ref.py``.  ``variant`` says
+which of the library's two kernels a call runs (chosen from the shape and
+the alignment alone), and ``variant_launches`` counts the library's
+launches of each.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 
@@ -21,13 +25,19 @@ from repro_torch.kernels._build import library
 # launches of the kernel in this process; a run that must show it went
 # through the kernel sets this to 0 before and reads it after
 LAUNCHES = {"rmsnorm": 0}
+# the same launches by (rows, d, x dtype), reset with LAUNCHES
+SHAPE_LAUNCHES: collections.Counter = collections.Counter()
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# the library's kernels: the generic one (a block per row), then the
+# register-resident one with G = 1, 2, 4, 8 warps per row
+VARIANTS = ("block", "rows_g1", "rows_g2", "rows_g4", "rows_g8")
 
 
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    SHAPE_LAUNCHES.clear()
 
 
 @functools.cache
@@ -39,6 +49,11 @@ def _lib() -> ctypes.CDLL:
     lib.rmsnorm_launch.restype = i
     lib.rmsnorm_error_string.argtypes = [i]
     lib.rmsnorm_error_string.restype = ctypes.c_char_p
+    ip = ctypes.POINTER(i)
+    lib.rmsnorm_variant.argtypes = [i64, i64, i64, i, p, p, p, ip, ip]
+    lib.rmsnorm_variant.restype = i
+    lib.rmsnorm_variant_launches.argtypes = [ctypes.POINTER(i64)]
+    lib.rmsnorm_variant_launches.restype = None
     return lib
 
 
@@ -78,11 +93,36 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor,
     lib = _lib()
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.rmsnorm_launch(
-        x.data_ptr(), w.data_ptr(), out.data_ptr(), rows, d,
-        max(x.stride(0), d), _DTYPE_CODE[x.dtype], _DTYPE_CODE[w.dtype],
-        eps, dev.index, stream)
+        x.data_ptr(), w.data_ptr(), out.data_ptr(), rows, d, _row_stride(x),
+        _DTYPE_CODE[x.dtype], _DTYPE_CODE[w.dtype], eps, dev.index, stream)
     if err:
         msg = lib.rmsnorm_error_string(err).decode()
         raise RuntimeError(f"rmsnorm launch failed: {msg} (cudaError {err})")
     LAUNCHES["rmsnorm"] += 1
+    SHAPE_LAUNCHES[rows, d, x.dtype] += 1
     return out
+
+
+def _row_stride(x: torch.Tensor) -> int:
+    return max(x.stride(0), x.shape[1])
+
+
+def variant(x: torch.Tensor, w: torch.Tensor) -> tuple[str, int]:
+    """The kernel that ``rmsnorm(x, w)`` runs, as the library chooses it
+    (a name of ``VARIANTS``), and its rows per block.  The output is
+    taken as 16-byte aligned, as ``torch.empty`` on a card allocates it."""
+    rows, d = x.shape
+    g, rpb = ctypes.c_int(), ctypes.c_int()
+    kind = _lib().rmsnorm_variant(
+        rows, d, _row_stride(x), _DTYPE_CODE[x.dtype], x.data_ptr(),
+        w.data_ptr(), 0, ctypes.byref(g), ctypes.byref(rpb))
+    if kind < 0:
+        raise ValueError(f"rmsnorm takes no kernel for x {tuple(x.shape)}")
+    return VARIANTS[g.value.bit_length()], rpb.value
+
+
+def variant_launches() -> dict[str, int]:
+    """The library's successful launches of each kernel in this process."""
+    counts = (ctypes.c_int64 * len(VARIANTS))()
+    _lib().rmsnorm_variant_launches(counts)
+    return dict(zip(VARIANTS, counts))

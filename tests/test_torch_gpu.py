@@ -277,6 +277,105 @@ def test_rmsnorm_kernel_refuses_mixed_devices(cuda):
         RMK.rmsnorm(torch.ones(4, 8, device=cuda), torch.ones(8))
 
 
+def _vec(dtype):
+    return 16 // torch.empty((), dtype=dtype).element_size()
+
+
+# (rows, d, x dtype, the kernel the library picks): each register
+# variant's largest d (G warps x 32 lanes x 4 vectors), one vector below
+# and one above; the generic kernel past G = 8 and off the vector grid
+RMS_VARIANT_CASES = [
+    (rows, g * 128 * _vec(dt) + dv * _vec(dt), dt,
+     f"rows_g{g}" if dv <= 0 else
+     (f"rows_g{2 * g}" if g < 8 else "block"))
+    for dt in (torch.float32, torch.bfloat16)
+    for g in (1, 2, 4, 8)
+    for dv, rows in ((-1, 37), (0, 8), (1, 37))
+] + [(1000, 33, torch.float32, "block"), (5, 1028, torch.bfloat16, "block")]
+
+
+def _rms_case(rows, d, dtype, w_dtype, device, seed=0):
+    g = torch.Generator().manual_seed(seed + rows + d)
+    x = torch.randn(rows, d, generator=g).to(device, dtype)
+    return x, torch.randn(d, generator=g).to(device, w_dtype)
+
+
+@pytest.mark.parametrize("w_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,d,dtype,variant", RMS_VARIANT_CASES)
+def test_rmsnorm_each_variant_matches_plain(cuda, rows, d, dtype, variant,
+                                            w_dtype):
+    x, w = _rms_case(rows, d, dtype, w_dtype, cuda)
+    assert RMK.variant(x, w)[0] == variant
+    before = RMK.variant_launches()
+    got = RMK.rmsnorm(x, w)
+    after = RMK.variant_launches()
+    assert after[variant] == before[variant] + 1
+    assert sum(after.values()) == sum(before.values()) + 1
+    tol = RMS_TOL[dtype]
+    torch.testing.assert_close(got.float(), rmref.rmsnorm_ref(x, w).float(),
+                               rtol=tol, atol=tol)
+
+
+def test_rmsnorm_counts_its_launches_by_shape(cuda):
+    RMK.reset_launches()
+    for rows, d, dtype in ((4, 1024, torch.bfloat16), (4, 1024,
+                           torch.bfloat16), (4, 2048, torch.float32),
+                           (0, 1024, torch.bfloat16)):
+        RMK.rmsnorm(*_rms_case(rows, d, dtype, torch.bfloat16, cuda))
+    assert RMK.SHAPE_LAUNCHES == {(4, 1024, torch.bfloat16): 2,
+                                  (4, 2048, torch.float32): 1}
+    assert RMK.LAUNCHES["rmsnorm"] == 3
+
+
+def test_rmsnorm_variant_cases_cover_every_kernel(cuda):
+    seen = set()
+    for rows, d, dtype, _ in RMS_VARIANT_CASES:
+        x, w = _rms_case(rows, d, dtype, dtype, cuda)
+        seen.add(RMK.variant(x, w)[0])
+    assert seen == set(RMK.VARIANTS)
+
+
+def test_rmsnorm_variant_refuses_unaligned_operands(cuda):
+    x, w = _rms_case(8, 1040, torch.bfloat16, torch.bfloat16, cuda)
+    assert RMK.variant(x, w) == ("rows_g2", 2)
+    assert RMK.variant(x[:, 8:1032], w[:1024]) == ("rows_g1", 4)
+    assert RMK.variant(x[:, 1:1025], w[:1024])[0] == "block"   # x off 16 B
+    assert RMK.variant(x[:, :1024], w[1:1025])[0] == "block"   # w off 16 B
+    assert RMK.variant(x[:, :1020], w[:1020])[0] == "block"    # d off vector
+
+
+# rows = 1, rows that leave a block's slots empty, and more rows than the
+# persistent grid holds (the grid-stride loop), at each path width
+@pytest.mark.parametrize("rows", [1, 3, 9, 8193, 20000])
+@pytest.mark.parametrize("d,dtype,w_dtype", [
+    (1024, torch.bfloat16, torch.bfloat16),
+    (2048, torch.float32, torch.bfloat16)])
+def test_rmsnorm_kernel_row_counts(cuda, rows, d, dtype, w_dtype):
+    x, w = _rms_case(rows, d, dtype, w_dtype, cuda)
+    got = RMK.rmsnorm(x, w)
+    tol = RMS_TOL[dtype]
+    torch.testing.assert_close(got.float(), rmref.rmsnorm_ref(x, w).float(),
+                               rtol=tol, atol=tol)
+
+
+# the serve path's four shapes (mamba2-370m, batch 4, prompt 2048): norm1
+# and final_norm in bf16, the gated norm in f32 with a bf16 scale, in
+# prefill and in one decode step; two calls give the same bits
+@pytest.mark.parametrize("rows,d,dtype,variant", [
+    (8192, 1024, torch.bfloat16, "rows_g1"),
+    (8192, 2048, torch.float32, "rows_g4"),
+    (4, 1024, torch.bfloat16, "rows_g1"),
+    (4, 2048, torch.float32, "rows_g4")])
+def test_rmsnorm_kernel_at_the_path_shapes(cuda, rows, d, dtype, variant):
+    x, w = _rms_case(rows, d, dtype, torch.bfloat16, cuda)
+    assert RMK.variant(x, w)[0] == variant
+    got = RMK.rmsnorm(x, w)
+    tol = RMS_TOL[dtype]
+    torch.testing.assert_close(got.float(), rmref.rmsnorm_ref(x, w).float(),
+                               rtol=tol, atol=tol)
+    assert torch.equal(RMK.rmsnorm(x, w), got)
+
+
 # the SSD-chunk kernel: test_ssd_chunk_sweep's shapes at its 1e-4, the
 # smoke model's chunk, ragged chunks and P, N off the tiles; x, B, C in
 # float32 and bfloat16

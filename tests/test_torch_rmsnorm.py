@@ -14,7 +14,8 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels.rmsnorm import rmsnorm as jax_rmsnorm  # noqa: E402
 from repro.kernels.rmsnorm import rmsnorm_ref as jax_rmsnorm_ref  # noqa: E402
-from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels import _build, timing  # noqa: E402
+from repro_torch.kernels.rmsnorm import bench  # noqa: E402
 from repro_torch.kernels.rmsnorm import kernel as K  # noqa: E402
 from repro_torch.kernels.rmsnorm import ops, ref  # noqa: E402
 
@@ -51,6 +52,62 @@ def test_rmsnorm_matches_pallas(rows, d, dtype):
     assert got.dtype == tx.dtype and got.shape == tx.shape
     _close(got, jax_rmsnorm(jx, jw), dtype)
     _close(got, jax_rmsnorm_ref(jx, jw), dtype)
+
+
+# the serve path's widths (mamba2-370m): norm1 and final_norm in bf16 over
+# d_model 1024, the gated norm in f32 with a bf16 scale over d_inner 2048,
+# at 16 prefill rows and at a decode step's 4 rows
+@pytest.mark.parametrize("rows", [16, 4])
+@pytest.mark.parametrize("d,dtype,w_dtype", [(1024, "bfloat16", "bfloat16"),
+                                             (2048, "float32", "bfloat16")])
+def test_rmsnorm_matches_pallas_at_the_path_widths(rows, d, dtype, w_dtype):
+    tx, tw, jx, jw = _operands((rows, d), dtype, w_dtype)
+    got = ops.rmsnorm(tx, tw)
+    assert got.dtype == tx.dtype and got.shape == (rows, d)
+    _close(got, jax_rmsnorm(jx, jw), dtype)
+    _close(got, jax_rmsnorm_ref(jx, jw), dtype)
+
+
+def test_bench_path_shapes_count_the_serve_runs_launches():
+    """97 RMSNorms per forward, one prefill and 64 decode steps."""
+    shapes = bench.path_shapes(1024, 2048, 48, 4, 2048, 64)
+    assert sum(s[-1] for s in shapes.values()) == 97 * 65
+    assert shapes["norm1"][:4] == (8192, 1024, torch.bfloat16,
+                                   torch.bfloat16)
+    assert shapes["gated_decode"][:4] == (4, 2048, torch.float32,
+                                          torch.bfloat16)
+
+
+def test_bench_cold_sets_exceed_twice_the_l2():
+    l2 = 50 * 2 ** 20                      # an H100's
+    for rows, d, dt, want in ((8192, 1024, torch.bfloat16, 8),
+                              (8192, 2048, torch.float32, 3),
+                              (4, 1024, torch.bfloat16, bench.MAX_SETS)):
+        n = bench.cold_sets(rows, d, dt, l2)
+        assert n == want
+        if n < bench.MAX_SETS:
+            assert (n - 1) * rows * d * dt.itemsize > 2 * l2
+
+
+@pytest.mark.parametrize("rows,d,dt,want_us", [
+    (8192, 1024, torch.bfloat16, 10.0169),      # norm1: 33.56 MB
+    (8192, 2048, torch.float32, 40.0662),       # gated, bf16 w: 134.2 MB
+    (4, 2048, torch.float32, 0.0208)])          # gated decode
+def test_bench_bound_is_the_bytes_at_the_hbm_rate(rows, d, dt, want_us):
+    """x and w read once, out written once, at 3.35 TB/s; RMSNorm's four
+    flops per element never bound it."""
+    x = torch.empty(rows, d, dtype=dt, device="meta")
+    w = torch.empty(d, dtype=torch.bfloat16, device="meta")
+    ms, by = timing.bound([x, w, x], rows * d, bench.FLOPS_PER_ELEMENT)
+    assert by == "bytes"
+    assert ms * 1e3 == pytest.approx(want_us, abs=1e-4)
+
+
+def test_reset_launches_clears_the_counts_by_shape():
+    K.SHAPE_LAUNCHES[8192, 1024, torch.bfloat16] += 3
+    K.LAUNCHES["rmsnorm"] += 3
+    K.reset_launches()
+    assert K.LAUNCHES == {"rmsnorm": 0} and not K.SHAPE_LAUNCHES
 
 
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
