@@ -63,7 +63,24 @@ Phases (one line each, or a few):
      (``LQCDSolveWorkload`` with that calibration) and HPL at n = 32768
      (``HPLWorkload``) on the card, with exact launch counts and each
      result's joules held to its trace's integral; nvidia-smi samples the
-     card's watts over that run.
+     card's watts over that run;
+ 14. the T-sharded LQCD path, several shards on the one card (a
+     ``lattice_mesh``): the sharded even-odd hop (B1 on halo-padded
+     blocks) at 32^3 x 8 over 2 and 4 shards, both parities, equal bit
+     for bit to the one-device hop, with one B1 launch per shard, and B1
+     on one padded block against its plain version; ``dslash_sharded``
+     (B2 on padded blocks) with and without compressed halos, equal to
+     the one-device full hop; ``solve_dirac(..., EO_MIXED_SOLVER,
+     mesh=lattice_mesh(64, 4))`` at 32^3 x 64 beside the one-device
+     solve, and the same at 32^3 x 8 over 2 shards (converged, iterations
+     within 2, x within 1e-3 of max|x|, B1 launches exact); at 32^3 x 64
+     the sharded EO hop over 4 shards, both parities, equal bit for bit
+     to the one-device hop, and B1 on shard 0's padded block, the
+     one-device B1 and the one-device B2 against their plain versions,
+     before those inputs are timed; the sharded
+     hop's device time beside the one-device hop's; the calibration on
+     4 shards beside the one-device one; a 8^3 x 16 sharded solve on the
+     CPU (plain) against the card (B1).
 Every time is taken by ``repro_torch.kernels.timing``: the calls are
 queued behind a sleep kernel, and a kernel's or a library call's reading
 that the host paced is taken again behind a longer sleep (a plain
@@ -292,10 +309,15 @@ def main() -> int:
     from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
     from repro_torch.kernels.ssd_chunk import kernel as SK
     from repro_torch.kernels.ssd_chunk.ref import ssd_chunk_ref
-    from repro_torch.lqcd import (dslash_flops_per_site, eo_pack,
+    from repro_torch.configs.lcsc_lqcd import COLD_LATTICE
+    from repro_torch.distributed import lattice_mesh
+    from repro_torch.lqcd import (ShardedWilsonEO, dslash,
+                                  dslash_flops_per_site, dslash_half, eo_pack,
                                   measured_lqcd_calibration, pack_gauge,
                                   schur_matvec, solve_dirac, su3_project)
     from repro_torch.lqcd.eo import schur_matvec_dagger
+    from repro_torch.lqcd.multichip import dslash_sharded
+    from repro_torch.lqcd.su3 import random_field_and_source
     from repro_torch.power import model as PM
     from repro_torch.roofline import hw
     from repro_torch.models import init_params
@@ -1085,7 +1107,247 @@ def main() -> int:
           f"{l3.mflops_per_w:.1f} MFLOPS/W at {l3.avg_power_w:.0f} W; "
           f"phase 13 took {time.perf_counter() - t13:.1f} s")
 
-    print(f"[13] chip_smoke.py took {time.perf_counter() - t_start:.1f} s "
+    # 14. the T-sharded path: several shards on the one card
+    torch.cuda.empty_cache()
+    t14 = time.perf_counter()
+    card = f"{kind}, {power_limit_w:.2f} W"
+    sharded = {"dslash_eo_split": {}}
+
+    def hop_ms(fn):
+        # 20 calls: a sharded hop over 4 shards is 24 launches, and with
+        # 50 calls queued the card's launch queue (~1000 deep) blocked
+        # the host before the sleep ended, in every retry
+        return timed_ms(fn, reps=20, warmup=3)
+
+    # 14a. the sharded EO hop against the one-device hop, bit for bit
+    one_ms = hop_ms(lambda: K.dslash_eo_split(*eo_args))
+    for n in (2, 4):
+        mesh = lattice_mesh(lat[3], n)
+        ops = ShardedWilsonEO(U_e, U_o, KAPPA, mesh)
+        check(ops.backend == "kernel" and mesh.n == n
+              and len(mesh.distinct_devices) == 1,
+              f"{n} shards on the one card, on the kernel path")
+        for src_parity in (0, 1):
+            p = eo_pack(psi, src_parity)
+            U_out, U_src = (U_o, U_e) if src_parity == 0 else (U_e, U_o)
+            want = dslash_half(U_out, U_src, p, src_parity)
+            K.reset_launches()
+            got = ops.dslash_half(p, src_parity)
+            n_launch = K.LAUNCHES["dslash_eo_split"]
+            torch.cuda.synchronize()
+            diff = float((got - want).abs().max())
+            print(f"[14a] sharded EO hop at {lat} over {n} shards "
+                  f"(T_local {lat[3] // n}, padded to {lat[3] // n + 2}), "
+                  f"src parity {src_parity}: max|diff| vs the one-device "
+                  f"B1 {diff:.1e}, {n_launch} B1 launches ({card})")
+            check(torch.equal(got, want), "the sharded EO hop equals the "
+                  "one-device hop bit for bit")
+            check(n_launch == n, f"one B1 launch per shard ({n})")
+        blocks = ops._split(eo_pack(psi, 0))
+        ms = hop_ms(lambda: ops._hop(blocks, 0))
+        sharded["dslash_eo_split"][f"{lat[3]}/{n}"] = ms
+        print(f"[14a] sharded EO hop at {lat} over {n} shards: {ms * 1e3:.1f}"
+              f" us device time per hop on per-shard blocks (halos, pads, "
+              f"{n} B1 launches, crops), one-device B1 {one_ms * 1e3:.1f} us"
+              f": {ms / one_ms:.3f} x ({card})")
+    # B1 on one padded block (shard 0 of 4) against its plain version
+    U_pad = ops._gauge
+    idx = torch.tensor([lat[3] - 1, *range(ops.t_local + 1)], device=dev)
+    pad_args = (to_split(U_pad[1][0]), to_split(U_pad[0][0]),
+                to_split(eo_pack(psi, 0).index_select(3, idx).contiguous()),
+                1)
+    got = K.dslash_eo_split(*pad_args)
+    want = dslash_eo_split_ref(*pad_args)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=TOL, atol=TOL)
+    print(f"[14a] B1 on one padded block {tuple(pad_args[2].shape[:4])} vs "
+          f"plain: max|err| {float((got - want).abs().max()):.3e} "
+          f"(rtol=atol={TOL})")
+
+    # 14b. the sharded full hop, compressed and not, against the one-device
+    want = dslash(U, psi)
+    for n in (2, 4):
+        mesh = lattice_mesh(lat[3], n)
+        K.reset_launches()
+        c = dslash_sharded(U, psi, mesh, compress=True)
+        u = dslash_sharded(U, psi, mesh, compress=False)
+        n_launch = K.LAUNCHES["dslash_split"]
+        torch.cuda.synchronize()
+        print(f"[14b] dslash_sharded at {lat} over {n} shards: compressed vs "
+              f"full halos max|diff| {float((c - u).abs().max()):.1e}, vs the "
+              f"one-device B2 {float((c - want).abs().max()):.1e}; "
+              f"{n_launch} B2 launches ({card})")
+        check(torch.equal(c, u) and torch.equal(c, want),
+              "the sharded full hop equals the one-device hop bit for bit, "
+              "with and without compressed halos")
+        check(n_launch == 2 * n, "one B2 launch per shard and call")
+    del c, u, want
+
+    # 14c. the sharded solve at full size beside the one-device solve
+    def solve_pair(U_, b_, n):
+        out = []
+        for mesh in (None, lattice_mesh(U_.shape[4], n)):
+            torch.cuda.synchronize()
+            K.reset_launches()
+            t0 = time.perf_counter()
+            res = solve_dirac(U_, b_, KAPPA, EO_MIXED_SOLVER, mesh=mesh)
+            torch.cuda.synchronize()
+            out.append((res, time.perf_counter() - t0, dict(K.LAUNCHES)))
+        (one, w1, l1), (sh, w2, l2) = out
+        shape = tuple(U_.shape[1:5])
+        dx = float((sh.x - one.x).abs().max() / one.x.abs().max())
+        for what, res, wall, lc, k in (("one device", one, w1, l1, 1),
+                                       (f"{n} shards", sh, w2, l2, n)):
+            print(f"[14c] EO_MIXED at {shape}, {what}: {res.iters} inner + "
+                  f"{res.outer_iters} outer, true rel. residual "
+                  f"{res.rel_residual:.3e}, {wall * 1e3:.1f} ms wall; "
+                  f"launches {lc} ({card})")
+            check(res.converged and res.rel_residual <= 1e-6,
+                  f"the {what} solve at {shape} converged to <= 1e-6")
+            check(lc["dslash_eo_split"] == k * (4 * res.iters
+                                                + 4 * res.outer_iters + 1)
+                  + 1 and lc["dslash_split"] == 1,
+                  f"B1 launched per hop and shard in the {what} solve")
+        print(f"[14c] {shape}: max|x_sharded - x_one| / max|x_one| {dx:.2e}")
+        check(abs(sh.iters - one.iters) <= 2
+              and abs(sh.outer_iters - one.outer_iters) <= 1,
+              "sharded and one-device iterations within 2 (outer 1)")
+        check(dx <= 1e-3, "sharded and one-device solutions within 1e-3")
+        return sh, w1, w2, l2
+
+    U_c, b_c = random_field_and_source(COLD_LATTICE.shape, SEED, dev)
+    cold, w_one, w_sh, cold_l = solve_pair(U_c, b_c, 4)
+    solve_pair(U, rhs[0], 2)
+    # where the sharded solve's time goes: one more under torch.profiler
+    for mesh in (None, lattice_mesh(64, 4)):
+        _, wall, busy, count, _ = device_activity(
+            lambda: solve_dirac(U_c, b_c, KAPPA, EO_MIXED_SOLVER, mesh=mesh))
+        total, n_act = sum(busy.values()), sum(count.values())
+        b1 = [sum(v for k, v in d.items() if "dslash_eo_kernel" in k)
+              for d in (busy, count)]
+        print(f"[14c] profiled EO_MIXED at {COLD_LATTICE.shape}, "
+              f"{'one device' if mesh is None else '4 shards'}: "
+              f"{wall * 1e3:.1f} ms wall, device busy {total * 1e3:.1f} ms "
+              f"({100 * total / wall:.1f}%, idle {100 - 100 * total / wall:.1f}"
+              f"%) in {n_act} device activities; B1 {b1[0] * 1e3:.1f} ms in "
+              f"{b1[1]} launches ({card}); the largest others:")
+        for name in sorted(busy, key=busy.get, reverse=True)[:4]:
+            if "dslash_eo_kernel" not in name:
+                print(f"    {busy[name] * 1e3:.3f} ms in {count[name]} x "
+                      f"{name[:90]}")
+    sharded["solve"] = {"lattice": list(COLD_LATTICE.shape), "shards": 4,
+                        "ms_one_device": w_one * 1e3, "ms_sharded": w_sh * 1e3,
+                        "iters": cold.iters, "outer_iters": cold.outer_iters,
+                        "launches": cold_l}
+    # the hops at 32^3 x 64 whose times follow, checked on the inputs the
+    # timings reuse: the sharded EO hop over 4 shards (T_local 16, padded
+    # to 18) equal to the one-device B1 bit for bit; B1 on shard 0's
+    # padded block, the one-device B1 and the one-device B2 (the solve's
+    # true residual) against their plain versions
+    U_ce, U_co = pack_gauge(U_c)
+    ops = ShardedWilsonEO(U_ce, U_co, KAPPA, lattice_mesh(64, 4))
+    for src_parity in (0, 1):
+        p = eo_pack(b_c, src_parity)
+        U_out, U_src = (U_co, U_ce) if src_parity == 0 else (U_ce, U_co)
+        want = dslash_half(U_out, U_src, p, src_parity)
+        K.reset_launches()
+        got = ops.dslash_half(p, src_parity)
+        n_launch = K.LAUNCHES["dslash_eo_split"]
+        torch.cuda.synchronize()
+        print(f"[14c] sharded EO hop at {COLD_LATTICE.shape} over 4 shards "
+              f"(T_local {ops.t_local}, padded to {ops.t_local + 2}), src "
+              f"parity {src_parity}: max|diff| vs the one-device B1 "
+              f"{float((got - want).abs().max()):.1e}, {n_launch} B1 "
+              f"launches ({card})")
+        check(torch.equal(got, want), "the sharded EO hop at 32^3 x 64 "
+              "equals the one-device hop bit for bit")
+        check(n_launch == 4, "one B1 launch per shard (4)")
+    del p, got, want
+    idx = torch.tensor([63, *range(ops.t_local + 1)], device=dev)
+    cold_pad = (to_split(ops._gauge[1][0]), to_split(ops._gauge[0][0]),
+                to_split(eo_pack(b_c, 0).index_select(3, idx).contiguous()),
+                1)
+    cold_args = (to_split(U_co), to_split(U_ce),
+                 to_split(eo_pack(b_c, 0)), 0)
+    full_args = (to_split(U_c), to_split(b_c))
+    for what, fn, ref_fn, args, psi_s in (
+            ("B1 on shard 0's padded block", K.dslash_eo_split,
+             dslash_eo_split_ref, cold_pad, cold_pad[2]),
+            ("one-device B1", K.dslash_eo_split, dslash_eo_split_ref,
+             cold_args, cold_args[2]),
+            ("one-device B2", K.dslash_split, dslash_split_ref, full_args,
+             full_args[1])):
+        got, want = fn(*args), ref_fn(*args)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        torch.testing.assert_close(got, want, rtol=TOL, atol=TOL)
+        print(f"[14c] {what} {tuple(psi_s.shape[:4])} vs plain: max|err| "
+              f"{err:.3e} (rtol=atol={TOL}) ({card})")
+        del got, want
+    del cold_pad, full_args, psi_s
+    torch.cuda.empty_cache()
+    # the hop's device time at 32^3 x 64, one device and over 4 shards
+    one_cold = hop_ms(lambda: K.dslash_eo_split(*cold_args))
+    b_ms, b_by = bound([cold_args[0], cold_args[1], cold_args[2],
+                        cold_args[2]], cold_args[2].shape[:4].numel(),
+                       dslash_flops_per_site())
+    blocks = ops._split(eo_pack(b_c, 0))
+    ms = hop_ms(lambda: ops._hop(blocks, 0))
+    sharded["dslash_eo_split"]["64/4"] = ms
+    print(f"[14c] EO hop at {COLD_LATTICE.shape}: one-device B1 "
+          f"{one_cold * 1e3:.1f} us ({100 * b_ms / one_cold:.1f}% of the "
+          f"{b_ms * 1e3:.1f} us {b_by} bound); over 4 shards "
+          f"{ms * 1e3:.1f} us ({ms / one_cold:.3f} x; {100 * b_ms / ms:.1f}% "
+          f"of the bound) ({card})")
+    sharded["dslash_eo_split"]["64/1"] = one_cold
+    del ops, blocks, U_c, b_c, U_ce, U_co, cold_args, cold
+    torch.cuda.empty_cache()
+
+    # 14d. the calibration over 4 shards on the one card
+    cal_one = measured_lqcd_calibration(THERMAL_LATTICE.shape, reps=reps)
+    K.reset_launches()
+    cal_sh = measured_lqcd_calibration(THERMAL_LATTICE.shape, reps=reps,
+                                       mesh=lattice_mesh(8, 4))
+    print(f"[14d] measured_lqcd_calibration({THERMAL_LATTICE.shape}): "
+          f"one device {cal_one.gflops:.1f} GFLOP/s, 4 shards "
+          f"{cal_sh.gflops:.1f} GFLOP/s, ratio "
+          f"{cal_sh.gflops / cal_one.gflops:.3f} (the cost of 4 shards on "
+          f"one card: pad rows, halo copies, 4 x the launches; not a "
+          f"multi-GPU loss); n_devices {cal_sh.n_devices}; launches "
+          f"{dict(K.LAUNCHES)} ({card})")
+    check(cal_sh.n_devices == 1, "4 shards on one card bill one device")
+    check(K.LAUNCHES["dslash_eo_split"] == 4 * 4 * (reps + 1),
+          "the sharded calibration launched 4 B1 per hop")
+
+    # 14e. a sharded solve on the CPU (plain) against the card (B1)
+    small = (8, 8, 8, 16)
+    U_s8, b_s8 = gauge(small, "cpu"), spinor(small, "cpu")
+    r_cpu = solve_dirac(U_s8, b_s8, KAPPA, EO_MIXED_SOLVER,
+                        mesh=lattice_mesh(16, 4, devices=("cpu",)))
+    K.reset_launches()
+    r_gpu = solve_dirac(U_s8.to(dev), b_s8.to(dev), KAPPA, EO_MIXED_SOLVER,
+                        mesh=lattice_mesh(16, 4))
+    x_gpu = r_gpu.x.cpu()
+    ok = torch.allclose(x_gpu, r_cpu.x, rtol=1e-3, atol=1e-4)
+    print(f"[14e] {small} over 4 shards, CPU plain vs card B1: iters "
+          f"{r_cpu.iters}+{r_cpu.outer_iters} vs {r_gpu.iters}+"
+          f"{r_gpu.outer_iters}, max|dx| "
+          f"{float((x_gpu - r_cpu.x).abs().max()):.2e}; card launches "
+          f"{dict(K.LAUNCHES)}")
+    check(r_cpu.converged and r_gpu.converged, "both sharded solves converged")
+    check(abs(r_cpu.iters - r_gpu.iters) <= 2 and ok,
+          "the sharded solve on the card agrees with the CPU's")
+    for rec in records:
+        if rec["name"] in ("dslash_eo_split", "dslash_split"):
+            rec["sharded"] = {"launches_32x32x32x64_4_shards":
+                              cold_l[rec["name"]]}
+            if rec["name"] == "dslash_eo_split":
+                rec["sharded"]["hop_ms_by_T_and_shards"] = \
+                    sharded["dslash_eo_split"]
+                rec["sharded"]["solve"] = sharded["solve"]
+    print(f"[14] phase 14 took {time.perf_counter() - t14:.1f} s ({card})")
+
+    print(f"[14] chip_smoke.py took {time.perf_counter() - t_start:.1f} s "
           f"in all")
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {

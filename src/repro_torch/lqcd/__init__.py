@@ -2,8 +2,11 @@
 primary workload (paper C1).
 
 Wilson-Dirac D-slash (the memory-bound hotspot), even-odd preconditioning,
-and a conjugate-gradient solver for the Dirac equation, in PyTorch.  The
-hand-written CUDA D-slash kernels live in ``repro_torch.kernels.dslash``.
+and a conjugate-gradient solver for the Dirac equation, in PyTorch, on one
+device or T-sharded over a ``repro_torch.distributed.LatticeMesh``
+(``ShardedWilsonEO``, ``solve_dirac(..., mesh=)``; the full-lattice
+``dslash_sharded`` is in ``repro_torch.lqcd.multichip``).  The hand-written
+CUDA D-slash kernels live in ``repro_torch.kernels.dslash``.
 """
 from repro_torch.lqcd.su3 import random_su3_field, su3_project  # noqa: F401
 from repro_torch.lqcd.dirac import (  # noqa: F401
@@ -28,6 +31,8 @@ from repro_torch.lqcd.eo import (  # noqa: F401
 )
 from repro_torch.lqcd.multichip_eo import (  # noqa: F401
     LQCDCalibration,
+    ShardedWilsonEO,
     analytic_lqcd_calibration,
+    dslash_half_sharded,
     measured_lqcd_calibration,
 )

@@ -119,11 +119,15 @@ def solve_wilson_eo(U: torch.Tensor, b: torch.Tensor, kappa: float, *,
     dtype and the outer loop re-computes the residual in f32 and restarts —
     the reliable-update scheme the paper's single/double CG uses.
 
-    ``mesh`` (the multi-device solve) is not ported yet.
+    With ``mesh`` (a :class:`repro_torch.distributed.LatticeMesh`), the
+    Schur operators and the whole inner CG run T-sharded over its shards
+    (:class:`repro_torch.lqcd.multichip_eo.ShardedWilsonEO`): the
+    hand-written EO kernel on halo-padded blocks on a CUDA mesh, the plain
+    hop on a CPU mesh.  The odd sites are then reconstructed on the
+    inputs' device from the
+    gathered ``x_e`` (the JAX function hands its still-sharded ``x_e`` to
+    the one-device reconstruction, which fails there).
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "the sharded even-odd solve (mesh=) is not ported yet")
     U_e, U_o = pack_gauge(U)
     b_e, b_o = eo_pack(b, 0), eo_pack(b, 1)
     b_norm = float(torch.sqrt(_dot(b, b)))
@@ -131,27 +135,45 @@ def solve_wilson_eo(U: torch.Tensor, b: torch.Tensor, kappa: float, *,
     # drives straight to tol in one outer sweep
     eta = inner_tol if inner_dtype is not None else tol
 
-    rhs_e = eo_rhs(U_e, U_o, b_e, b_o, kappa)
+    if mesh is not None:
+        from repro_torch.lqcd.multichip_eo import ShardedWilsonEO
+        hi = ShardedWilsonEO(U_e, U_o, kappa, mesh)
+        # the inner CG streams the *rounded* gauge field, like the
+        # one-device normal_lo path
+        lo = hi if inner_dtype is None else ShardedWilsonEO(
+            _round_complex(U_e, inner_dtype), _round_complex(U_o, inner_dtype),
+            kappa, mesh)
+        rhs_e = hi.rhs(b_e, b_o)
+        schur, schur_dagger = hi.schur, hi.schur_dagger
 
-    def schur(v):
-        return schur_matvec(U_e, U_o, v, kappa)
-
-    def schur_dagger(v):
-        return schur_matvec_dagger(U_e, U_o, v, kappa)
-
-    if inner_dtype is not None:
-        U_e_lo = _round_complex(U_e, inner_dtype)
-        U_o_lo = _round_complex(U_o, inner_dtype)
-
-        def normal_lo(v):
-            v = _round_complex(v, inner_dtype)
-            av = schur_matvec(U_e_lo, U_o_lo, v, kappa)
-            av = _round_complex(av, inner_dtype)
-            out = schur_matvec_dagger(U_e_lo, U_o_lo, av, kappa)
-            return _round_complex(out, inner_dtype)
+        def run_inner(rhs_n, cap):
+            return lo.cg_normal(rhs_n, tol=eta, max_iters=cap,
+                                inner_dtype=inner_dtype)
     else:
-        def normal_lo(v):
-            return schur_dagger(schur(v))
+        rhs_e = eo_rhs(U_e, U_o, b_e, b_o, kappa)
+
+        def schur(v):
+            return schur_matvec(U_e, U_o, v, kappa)
+
+        def schur_dagger(v):
+            return schur_matvec_dagger(U_e, U_o, v, kappa)
+
+        if inner_dtype is not None:
+            U_e_lo = _round_complex(U_e, inner_dtype)
+            U_o_lo = _round_complex(U_o, inner_dtype)
+
+            def normal_lo(v):
+                v = _round_complex(v, inner_dtype)
+                av = schur_matvec(U_e_lo, U_o_lo, v, kappa)
+                av = _round_complex(av, inner_dtype)
+                out = schur_matvec_dagger(U_e_lo, U_o_lo, av, kappa)
+                return _round_complex(out, inner_dtype)
+        else:
+            def normal_lo(v):
+                return schur_dagger(schur(v))
+
+        def run_inner(rhs_n, cap):
+            return cg_solve(normal_lo, rhs_n, tol=eta, max_iters=cap)
 
     x_e = torch.zeros_like(rhs_e)
     r_s = rhs_e                              # Schur-system residual
@@ -167,8 +189,7 @@ def solve_wilson_eo(U: torch.Tensor, b: torch.Tensor, kappa: float, *,
         remaining = max_iters - total_inner
         round_cap = (remaining if inner_dtype is None
                      else min(remaining, max(10, max_iters // 5)))
-        inner = cg_solve(normal_lo, schur_dagger(r_s), tol=eta,
-                         max_iters=round_cap)
+        inner = run_inner(schur_dagger(r_s), round_cap)
         total_inner += inner.iters
         x_e = x_e + inner.x
         r_s = rhs_e - schur(x_e)             # recompute in full precision
@@ -188,16 +209,18 @@ def solve_dirac(U: torch.Tensor, b: torch.Tensor, kappa: float, cfg, *,
 
     Returns a ``CGResult`` for the plain path and an ``EOCGResult`` for the
     even-odd paths (both expose ``.x``, ``.iters``, ``.rel_residual``,
-    ``.converged``).  ``mesh`` (the multi-device solve) is not ported yet.
+    ``.converged``).  ``mesh`` routes the even-odd paths through the
+    T-sharded solve; the plain path has none and refuses it.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "the sharded solve (mesh=) is not ported yet")
     if cfg.preconditioner == "none":
+        if mesh is not None:
+            raise ValueError("mesh= requires an even-odd preconditioner "
+                             "(cfg.preconditioner != 'none')")
         return solve_wilson(U, b, kappa, tol=cfg.tol,
                             max_iters=cfg.max_iters)
     # float32 inner == working precision: not a mixed-precision solve
     inner = _INNER_DTYPES[cfg.inner_dtype] if cfg.mixed_precision else None
     return solve_wilson_eo(U, b, kappa, tol=cfg.tol,
                            max_iters=cfg.max_iters, inner_dtype=inner,
-                           inner_tol=cfg.inner_tol, max_outer=cfg.max_outer)
+                           inner_tol=cfg.inner_tol, max_outer=cfg.max_outer,
+                           mesh=mesh)

@@ -265,7 +265,9 @@ def test_measured_calibration_on_the_cpu_is_consistent(reps):
 
 
 def test_measured_calibration_refuses_a_mesh():
-    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
+    """A mesh that is not a LatticeMesh (the sharded calibration itself is
+    tested in tests/test_torch_multichip.py)."""
+    with pytest.raises(TypeError, match="LatticeMesh"):
         TMC.measured_lqcd_calibration((4, 4, 4, 4), mesh=object(),
                                       device="cpu")
 

@@ -24,8 +24,12 @@ from repro_torch.kernels.ssd_chunk import kernel as SSK  # noqa: E402
 from repro_torch.kernels.ssd_chunk import ops as ssops  # noqa: E402
 from repro_torch.kernels.ssd_chunk import ref as ssref  # noqa: E402
 from repro_torch.kernels.dslash import ops, ref  # noqa: E402
+from repro_torch.distributed import lattice_mesh  # noqa: E402
 from repro_torch.lqcd import cg as TC  # noqa: E402
+from repro_torch.lqcd import dirac as TD  # noqa: E402
 from repro_torch.lqcd import eo as TE  # noqa: E402
+from repro_torch.lqcd import multichip as TM  # noqa: E402
+from repro_torch.lqcd import multichip_eo as TMC  # noqa: E402
 from repro_torch.lqcd import su3 as TS  # noqa: E402
 
 pytestmark = pytest.mark.gpu
@@ -106,6 +110,93 @@ def test_solve_on_the_card_matches_the_cpu(cuda, preset):
     assert abs(got.iters - want.iters) <= (2 if cfg.mixed_precision else 1)
     np.testing.assert_allclose(convert.to_numpy(got.x),
                                convert.to_numpy(want.x), rtol=0, atol=2e-4)
+
+
+# -- the T-sharded path: several shards on the card -----------------------
+
+
+@pytest.mark.parametrize("n", [2, 4])
+@pytest.mark.parametrize("lattice", [(8, 8, 8, 16), (16, 8, 8, 8)])
+def test_sharded_eo_hop_equals_the_one_device_kernel(cuda, lattice, n):
+    """Every real row of a padded block reads the one-device operands in
+    the same order: the cropped hops equal B1's one-device hop bit for
+    bit, one B1 launch per shard."""
+    U, psi = _fields(lattice, cuda)
+    U_e, U_o = TE.pack_gauge(U)
+    mesh = lattice_mesh(lattice[3], n)
+    assert mesh.n == n and mesh.distinct_devices == (torch.device("cuda", 0),)
+    ops_ = TMC.ShardedWilsonEO(U_e, U_o, 0.1, mesh)
+    assert ops_.backend == "kernel"
+    for src_parity in (0, 1):
+        p = TE.eo_pack(psi, src_parity)
+        U_out, U_src = (U_o, U_e) if src_parity == 0 else (U_e, U_o)
+        want = TE.dslash_half(U_out, U_src, p, src_parity)
+        before = K.LAUNCHES["dslash_eo_split"]
+        got = ops_.dslash_half(p, src_parity)
+        assert K.LAUNCHES["dslash_eo_split"] == before + n
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_sharded_full_hop_equals_the_one_device_kernel(cuda, n):
+    U, psi = _fields((8, 8, 8, 16), cuda)
+    mesh = lattice_mesh(16, n)
+    want = TD.dslash(U, psi)
+    before = K.LAUNCHES["dslash_split"]
+    c = TM.dslash_sharded(U, psi, mesh, compress=True)
+    u = TM.dslash_sharded(U, psi, mesh, compress=False)
+    assert K.LAUNCHES["dslash_split"] == before + 2 * n
+    assert torch.equal(c, u) and torch.equal(c, want)
+
+
+def test_no_plain_hop_runs_on_the_card(cuda):
+    U, _ = _fields((4, 4, 4, 8), cuda)
+    U_e, U_o = TE.pack_gauge(U)
+    assert TMC.ShardedWilsonEO(U_e, U_o, 0.1,
+                               lattice_mesh(8, 2)).backend == "kernel"
+    with pytest.raises(ValueError, match="unknown backend"):
+        TMC.ShardedWilsonEO(U_e, U_o, 0.1, lattice_mesh(8, 2),
+                            backend="plain")
+    # the padded kernel path needs an even local T extent
+    with pytest.raises(ValueError, match="even local T"):
+        TMC.ShardedWilsonEO(U_e, U_o, 0.1, lattice_mesh(8, 8))
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_sharded_solve_on_the_card_matches_one_device(cuda, n):
+    """EO_MIXED at 16^3 x 16: the sharded solve (B1 on padded blocks)
+    against the one-device solve (B1 on the whole lattice)."""
+    U, b = _fields((16, 16, 16, 16), cuda, seed=3)
+    want = TC.solve_dirac(U, b, 0.137, TL.EO_MIXED_SOLVER)
+    before = K.LAUNCHES["dslash_eo_split"]
+    got = TC.solve_dirac(U, b, 0.137, TL.EO_MIXED_SOLVER,
+                         mesh=lattice_mesh(16, n))
+    launches = K.LAUNCHES["dslash_eo_split"] - before
+    assert got.converged and got.rel_residual <= 1e-6
+    assert abs(got.iters - want.iters) <= 2
+    assert abs(got.outer_iters - want.outer_iters) <= 1
+    # per outer step one Schur dagger and one Schur op (4 sharded hops),
+    # 4 per inner normal op; the rhs; one one-device hop to reconstruct
+    assert launches == n * (4 * got.iters + 4 * got.outer_iters + 1) + 1
+    scale = float(want.x.abs().max())
+    assert float((got.x - want.x).abs().max()) <= 1e-3 * scale
+
+
+def test_shards_on_several_cards(cuda):
+    """Never run on a one-card machine: the shards spread over every
+    visible card, halos copied between them."""
+    k = torch.cuda.device_count()
+    if k < 2:
+        pytest.skip("needs two or more CUDA devices")
+    U, b = _fields((8, 8, 8, 16), cuda, seed=3)
+    mesh = lattice_mesh(16, min(k, 8))       # T_local 8, 4 or 2: even
+    assert len(mesh.distinct_devices) >= 2
+    U_e, U_o = TE.pack_gauge(U)
+    p = TE.eo_pack(b, 0)
+    got = TMC.ShardedWilsonEO(U_e, U_o, 0.1, mesh).dslash_half(p, 0)
+    assert torch.equal(got, TE.dslash_half(U_o, U_e, p, 0))
+    res = TC.solve_dirac(U, b, 0.137, TL.EO_MIXED_SOLVER, mesh=mesh)
+    assert res.converged and res.rel_residual <= 1e-6
 
 
 def test_random_su3_field_on_the_card(cuda):
@@ -512,7 +603,7 @@ def test_measured_calibration_on_the_card(cuda):
     assert cal.gflops > 0 and cal.eff_bw_gbs > 0
     assert cal.busy_w == H100_MEM_BOUND_W
     assert cal.energy_j == pytest.approx(cal.busy_w * cal.wall_s, rel=1e-9)
-    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
+    with pytest.raises(TypeError, match="LatticeMesh"):
         measured_lqcd_calibration((8, 8, 8, 8), mesh=object())
 
 

@@ -84,11 +84,16 @@ def test_cg_solve_respects_max_iters():
 
 
 def test_mesh_is_not_ported_yet():
+    """The sharded solve is ported now (tests/test_torch_multichip.py);
+    what stays refused is a mesh that is not a LatticeMesh, and a mesh on
+    the plain path, which has no sharded form."""
     _, _, tU, tb = _fields((4, 4, 4, 4))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="LatticeMesh"):
         TC.solve_dirac(tU, tb, KAPPA, TL.EO_SOLVER, mesh=object())
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="LatticeMesh"):
         TC.solve_wilson_eo(tU, tb, KAPPA, mesh=object())
+    with pytest.raises(ValueError, match="even-odd"):
+        TC.solve_dirac(tU, tb, KAPPA, TL.PLAIN_SOLVER, mesh=object())
 
 
 def test_configs_match_jax():
