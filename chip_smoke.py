@@ -80,7 +80,20 @@ Phases (one line each, or a few):
      before those inputs are timed; the sharded
      hop's device time beside the one-device hop's; the calibration on
      4 shards beside the one-device one; a 8^3 x 16 sharded solve on the
-     CPU (plain) against the card (B1).
+     CPU (plain) against the card (B1);
+ 15. the autotuner on the card, and the GEMM's two tiles: the 64 x 128
+     tile against the 128 x 128 tile bit for bit (the JAX sweep's shapes,
+     ragged shapes and unaligned views, f32 and bf16, product and update;
+     HPL's step-0 update at n = 32768) and against the plain version;
+     each tile's time at the step-0 update and at (1024, 256) @ (256,
+     1024), in turns, beside each shape's bound; then the autotuner's
+     path with the launch counts read around it: the analytic and the
+     measured (``MeasuredDgemmModel``) tile picks at both shapes,
+     ``dgemm(..., tuned=True)`` at the small one, the HPL blocking search
+     at n = 4096 timed on the card twice (``MeasuredHPLModel``, the
+     fastest of 3 runs a point: each run's wall and residual, each
+     point's GFLOP/s, each search's pick) beside the analytic pick, and
+     ``HPLConfig(n=32768).tuned()``'s blocking (not run).
 Every time is taken by ``repro_torch.kernels.timing``: the calls are
 queued behind a sleep kernel, and a kernel's or a library call's reading
 that the host paced is taken again behind a longer sleep (a plain
@@ -94,6 +107,7 @@ from __future__ import annotations
 
 import copy
 import json
+import math
 import re
 import signal
 import subprocess
@@ -115,6 +129,9 @@ GEMM_SWEEP = [(128, 128, 128), (256, 128, 384), (512, 256, 128)]
 GEMM_RAGGED = (1000, 333, 259)
 HPL_N, HPL_NB, HPL_LOOKAHEAD = 32768, 256, 1
 SMALL_HPL_SEED = 20             # see phase 8
+SMALL_GEMM = (1024, 1024, 256)  # (m, n, k) of phase 15's small product
+HPL_TUNE_N = 4096               # phase 15's measured HPL blocking search
+HPL_TUNE_SEARCHES = 2           # ... run this many times, 3 runs a point
 HPL_PROFILE_N = 8192
 RMS_SOURCE = "src/repro_torch/kernels/rmsnorm/csrc/rmsnorm.cu"
 RMS_REPLACES = "src/repro/kernels/rmsnorm/kernel.py:23"
@@ -295,11 +312,16 @@ def main() -> int:
     from repro_torch.config import full_config
     from repro_torch.configs.lcsc_lqcd import (EO_MIXED_SOLVER, PLAIN_SOLVER,
                                                THERMAL_LATTICE)
+    from repro_torch.autotune import (EFFICIENCY_PERF_LOSS, MeasuredHPLModel,
+                                      TuneCache, grid_search,
+                                      hpl_blocking_space, set_default_cache,
+                                      tune_dgemm_tiles, tune_hpl_blocking)
     from repro_torch.configs.hpl import DEFAULT_HPL, HPLConfig
     from repro_torch.hpl import blocked_lu, linpack_run, lu_solve
     from repro_torch.kernels import _build
     from repro_torch.kernels.timing import bound, timed_ms
     from repro_torch.kernels.dgemm import kernel as G
+    from repro_torch.kernels.dgemm import ops as GO
     from repro_torch.kernels.dgemm.ref import dgemm_ref, dgemm_update_ref_
     from repro_torch.kernels.dslash import kernel as K
     from repro_torch.kernels.dslash.ref import (dslash_eo_split_ref,
@@ -582,8 +604,9 @@ def main() -> int:
           f"{res.gflops:.1f} GFLOP/s (2/3 n^3), {total:.2f} s in all; "
           f"launches {hpl_launches}")
     check(res.passed, "HPL scaled residual < 16")
-    check(hpl_launches["dgemm"] == expect,
-          f"dgemm launched {expect} times on the HPL path")
+    check(hpl_launches["dgemm"] == expect
+          and hpl_launches["dgemm_128x128"] == expect,
+          f"dgemm launched {expect} times on the HPL path, all 128 x 128")
     check(hpl_launches["dslash_split"] == hpl_launches["dslash_eo_split"]
           == 0, "the HPL path launches no D-slash")
     del a_big
@@ -1073,8 +1096,9 @@ def main() -> int:
     e_launches = {**K.LAUNCHES, **G.LAUNCHES}
     lq, hpl = res.results
     it, outer = lq.details["iters"], lq.details["outer_iters"]
+    n_gemm = (steps - 1) + (steps - 2 if hpl_cfg.lookahead else 0)
     want = {"dslash_eo_split": 4 * it + 4 * outer + 2, "dslash_split": 1,
-            "dgemm": (steps - 1) + (steps - 2 if hpl_cfg.lookahead else 0)}
+            "dgemm": n_gemm, "dgemm_128x128": n_gemm, "dgemm_64x128": 0}
     for r in res.results:
         t_end = float(r.power_trace.t[-1])
         integral = r.power_trace.energy_j(t0=t_end - r.wall_s, t1=t_end)
@@ -1347,7 +1371,177 @@ def main() -> int:
                 rec["sharded"]["solve"] = sharded["solve"]
     print(f"[14] phase 14 took {time.perf_counter() - t14:.1f} s ({card})")
 
-    print(f"[14] chip_smoke.py took {time.perf_counter() - t_start:.1f} s "
+
+    # 15. the autotuner on the card, and the GEMM's two tiles
+    torch.cuda.empty_cache()
+    t15 = time.perf_counter()
+    set_default_cache(TuneCache())     # in memory, empty
+    # 15a. the 64 x 128 tile against the 128 x 128 tile, bit for bit, and
+    # against the plain version
+    tile_err = 0.0
+    for m, n, k in GEMM_SWEEP + [GEMM_RAGGED, SMALL_GEMM]:
+        for dtype in (torch.float32, torch.bfloat16):
+            x, y, c = randn(m, k, dtype=dtype), randn(k, n, dtype=dtype), \
+                randn(m, n, dtype=dtype)
+            p128, p64 = G.dgemm(x, y), G.dgemm(x, y, bm=64)
+            c128, c64 = c.clone(), c.clone()
+            G.dgemm_update_(c128, x, y)
+            G.dgemm_update_(c64, x, y, bm=64)
+            want, want_c = dgemm_ref(x, y), dgemm_update_ref_(c.clone(), x, y)
+            torch.cuda.synchronize()
+            check(torch.equal(p64, p128) and torch.equal(c64, c128),
+                  f"B3's tiles agree bit for bit at {(m, n, k)}, {dtype}")
+            torch.testing.assert_close(p64, want, **gemm_tol[dtype])
+            torch.testing.assert_close(c64, want_c, **gemm_tol[dtype])
+            if dtype == torch.float32:
+                tile_err = max(tile_err, float((p64 - want).abs().max()),
+                               float((c64 - want_c).abs().max()))
+    a = randn(1024, 1024)
+    t128, t64 = a.clone(), a.clone()
+    for t, bm in ((t128, 128), (t64, 64)):
+        G.dgemm_update_(t[131:, 131:], t[131:, 3:131], t[3:131, 131:], bm=bm)
+        G.dgemm(t[5:75, 3:22], t[103:122, 1:39], bm=bm)
+    torch.cuda.synchronize()
+    check(torch.equal(t64, t128), "B3's tiles agree on unaligned views")
+
+    def rest_views(t):
+        """Step 0's larger update (the rest, after the next panel)."""
+        return (t[HPL_NB:, 2 * HPL_NB:], t[HPL_NB:, :HPL_NB],
+                t[:HPL_NB, 2 * HPL_NB:])
+
+    a_big = randn(HPL_N, HPL_N)
+    t64, want = a_big.clone(), a_big.clone()
+    G.dgemm_update_(*rest_views(a_big))
+    G.dgemm_update_(*rest_views(t64), bm=64)
+    dgemm_update_ref_(*rest_views(want))
+    torch.cuda.synchronize()
+    check(torch.equal(t64, a_big), "B3's tiles agree bit for bit at step "
+          "0's update, n = 32768")
+    torch.testing.assert_close(t64, want, **gemm_tol[torch.float32])
+    step0_err = float((t64 - want).abs().max())
+    tile_err = max(tile_err, step0_err)
+    del t64, want, a, t128
+    torch.cuda.empty_cache()
+    print(f"[15] B3's 64 x 128 tile equals the 128 x 128 tile bit for bit "
+          f"({GEMM_SWEEP}, ragged {GEMM_RAGGED}, {SMALL_GEMM}, f32 and bf16, "
+          f"product and update; unaligned views; step 0's update at "
+          f"n={HPL_N}); max|err| vs plain in f32 {tile_err:.3e} (step 0: "
+          f"{step0_err:.3e})")
+
+    # 15b. each tile's time, in turns, at step 0's update and at a small
+    # product, beside each shape's bound
+    a22, l21, u12 = rest_views(a_big)
+    xs, ys = randn(SMALL_GEMM[0], SMALL_GEMM[2]), \
+        randn(SMALL_GEMM[2], SMALL_GEMM[1])
+    out_s = torch.empty(SMALL_GEMM[:2], device=dev)
+    shapes = {
+        "step-0 update": (lambda bm: G.dgemm_update_(a22, l21, u12, bm=bm),
+                          10, 2, [l21, u12, a22, a22],
+                          2 * a22.shape[0] * a22.shape[1] * HPL_NB),
+        "small product": (lambda bm: G.dgemm(xs, ys, bm=bm), 200, 20,
+                          [xs, ys, out_s], 2 * math.prod(SMALL_GEMM))}
+    tile_ms = {}
+    for what, (fn, reps, warm, in_out, flops) in shapes.items():
+        reads = {128: [], 64: []}
+        for bm in (128, 64, 64, 128):
+            reads[bm].append(timed_ms(lambda: fn(bm), reps=reps,
+                                      warmup=warm))
+        b_ms, b_by = bound(in_out, flops, 1)
+        for bm, r in reads.items():
+            ms = sum(r) / len(r)
+            tile_ms[what, bm] = ms
+            print(f"[15] {bm} x 128 tile, {what}: {ms:.4f} ms (readings "
+                  f"{r[0]:.4f}, {r[1]:.4f}), {flops / ms / 1e9:.2f} "
+                  f"TFLOP/s, {100 * b_ms / ms:.1f}% of the {b_ms:.4f} ms "
+                  f"{b_by} bound ({card})")
+    del a22, l21, u12, a_big, out_s
+    torch.cuda.empty_cache()
+
+    # 15c. the autotuner's path on the card, its launches counted
+    torch.cuda.synchronize()
+    K.reset_launches()
+    G.reset_launches()
+    picks = {}
+    for shape in ((HPL_N - HPL_NB, HPL_NB, HPL_N - 2 * HPL_NB),
+                  (SMALL_GEMM[0], SMALL_GEMM[2], SMALL_GEMM[1])):
+        for how in ("analytic", "measured"):
+            res = tune_dgemm_tiles(*shape, measured=how == "measured")
+            picks[shape, how] = res.best.point["bm"]
+            cands = ", ".join(f"bm {c.point['bm']}: {c.perf_gflops:.1f} "
+                              f"GFLOP/s at {c.power_w:.1f} W"
+                              for c in res.trace)
+            print(f"[15] {how} dgemm pick at (m, k, n) = {shape}: "
+                  f"{res.best.point} ({cands}) ({card})")
+    got = GO.dgemm(xs, ys, tuned=True)
+    # the measured HPL blocking search, twice, to show how far its pick
+    # holds from one search to the next
+    hpl_searches = []
+    for _ in range(HPL_TUNE_SEARCHES):
+        hpl_model = MeasuredHPLModel(HPL_TUNE_N)
+        hpl_res = grid_search(hpl_blocking_space(HPL_TUNE_N), hpl_model,
+                              max_perf_loss=EFFICIENCY_PERF_LOSS)
+        hpl_searches.append((hpl_model, hpl_res))
+    analytic_hpl = tune_hpl_blocking(HPL_TUNE_N)
+    tuned_big = HPLConfig(n=HPL_N).tuned()
+    torch.cuda.synchronize()
+    tune_launches = {**K.LAUNCHES, **G.LAUNCHES}
+    torch.testing.assert_close(got, dgemm_ref(xs, ys),
+                               **gemm_tol[torch.float32])
+    for i, (hpl_model, hpl_res) in enumerate(hpl_searches):
+        by_point = {}
+        for point, r in hpl_model.runs:
+            by_point.setdefault((point["block"], point["lookahead"]),
+                                []).append(r)
+        for (block, la), rs in by_point.items():
+            print(f"[15] search {i}: linpack_run(n={HPL_TUNE_N}, "
+                  f"block={block}, lookahead={la}): walls "
+                  + ", ".join(f"{r.wall_s:.4f}" for r in rs) + " s, best "
+                  f"{max(r.gflops for r in rs):.1f} GFLOP/s, scaled "
+                  f"residuals " + ", ".join(f"{r.residual:.4e}" for r in rs)
+                  + f", passed {all(r.passed for r in rs)} ({card})")
+        print(f"[15] HPL blocking at n={HPL_TUNE_N}, search {i}: measured "
+              f"pick {hpl_res.best.point} ({hpl_res.best.perf_gflops:.1f} "
+              f"GFLOP/s, {hpl_res.best.mflops_per_w:.1f} MFLOPS/W by the "
+              f"node model, {hpl_res.evaluations} points, "
+              f"{len(hpl_model.runs)} runs) ({card})")
+        check(all(r.passed for _, r in hpl_model.runs)
+              and len(hpl_model.runs)
+              == hpl_res.evaluations * hpl_model.reps,
+              "every HPL run of the blocking search passed")
+    print(f"[15] HPL blocking at n={HPL_TUNE_N}: measured picks "
+          f"{[res.best.point for _, res in hpl_searches]}, analytic pick "
+          f"{analytic_hpl.best.point}; HPLConfig(n={HPL_N}).tuned() gives "
+          f"block {tuned_big.block}, lookahead {tuned_big.lookahead} (not "
+          f"run); launches on the autotuner's path {tune_launches} ({card})")
+    check(analytic_hpl.best.point == {"block": HPL_TUNE_N // 4,
+                                      "lookahead": 1}
+          and (tuned_big.block, tuned_big.lookahead) == (HPL_N // 4, 1),
+          "the analytic HPL blocking picks n / 4")
+    check(picks[(SMALL_GEMM[0], SMALL_GEMM[2], SMALL_GEMM[1]), "analytic"]
+          == 64 and picks[(HPL_N - HPL_NB, HPL_NB, HPL_N - 2 * HPL_NB),
+                          "analytic"] == 128,
+          "the analytic dgemm picks: 64 rows small, 128 at step 0")
+    check(tune_launches["dgemm_64x128"] > 0
+          and tune_launches["dgemm_128x128"] > 0,
+          "both B3 tiles launched on the autotuner's path")
+    check(tune_launches["dgemm"] == tune_launches["dgemm_64x128"]
+          + tune_launches["dgemm_128x128"], "B3's launches by tile add up")
+    gemm_rec = next(r for r in records if r["name"] == "dgemm")
+    records.append({
+        "name": "dgemm_64x128", "route": "cuda", "source": GEMM_SOURCE,
+        "replaces": GEMM_REPLACES,
+        "launches": tune_launches["dgemm_64x128"],
+        "max_abs_err": tile_err, "ms": tile_ms["step-0 update", 64],
+        "plain_ms": gemm_rec["plain_ms"], "bound_ms": gemm_rec["bound_ms"],
+        "bound_by": gemm_rec["bound_by"],
+        "library_ms": gemm_rec["library_ms"],
+        "small_product_ms": tile_ms["small product", 64],
+        "small_product_ms_128x128": tile_ms["small product", 128],
+        "step0_ms_128x128_in_turns": tile_ms["step-0 update", 128]})
+    set_default_cache(None)
+    print(f"[15] phase 15 took {time.perf_counter() - t15:.1f} s ({card})")
+
+    print(f"[15] chip_smoke.py took {time.perf_counter() - t_start:.1f} s "
           f"in all")
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {

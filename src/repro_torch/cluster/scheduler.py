@@ -27,16 +27,11 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from repro_torch.autotune.measure import recommended_operating_point
+from repro_torch.autotune.space import S9150_DPM_STATES_MHZ
 from repro_torch.configs.lcsc_lqcd import (GREEN500_SWITCH_POWER_W,
                                            MULTI_GPU_SLOWDOWN)
 from repro_torch.power.model import OperatingPoint
-
-# The S9150 (Hawaii) exposes a small set of firmware DPM clock states;
-# 774 MHz is the one the paper locked for the Green500 run.  A copy of
-# the JAX package's ``autotune/space.py`` ladder: the power cap derates
-# down these supported states, not a continuum.
-S9150_DPM_STATES_MHZ: Tuple[float, ...] = (300.0, 457.0, 562.0, 662.0,
-                                           774.0, 851.0, 900.0)
 
 
 class SchedulingError(ValueError):
@@ -286,7 +281,8 @@ class Scheduler:
         """Resolve the operating point one job (or the batch reference,
         when ``job`` is None) actually runs at.  Resolution order:
         explicit ``op`` override → the job's ``preferred_op`` → the
-        Green500 point (:meth:`_recommended_op`) — then derated
+        autotuner cost model's recommendation (:meth:`_recommended_op`,
+        cached) — then derated
         down the S9150 DPM ladder until the full-load cluster draw fits
         the power cap.  Returns ``(op, derated)``.  Every job's
         preference is honored individually: nothing is coerced onto a
@@ -300,11 +296,11 @@ class Scheduler:
         return self._derate(op)
 
     def _recommended_op(self) -> OperatingPoint:
-        """The operating point for jobs with no preference: the paper's
-        Green500 point, which the JAX package's autotuner cost model
-        rediscovers.  The port has no autotuner yet (ROADMAP A5)."""
+        """The autotuner cost model's pick for jobs with no preference —
+        the coordinate-descent search over the analytic node model
+        (which rediscovers the paper's Green500 point)."""
         if self._auto_op is None:
-            self._auto_op = OperatingPoint.green500()
+            self._auto_op = recommended_operating_point()
         return self._auto_op
 
     def _derate(self, op: OperatingPoint) -> Tuple[OperatingPoint, bool]:

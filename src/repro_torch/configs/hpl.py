@@ -25,11 +25,17 @@ class HPLConfig:
                          lookahead=self.lookahead, mode="efficiency",
                          dtype=self.dtype, seed=self.seed)
 
-    def tuned(self) -> "HPLConfig":
-        """Blocking from the autotune cache: not in the port yet."""
-        raise NotImplementedError(
-            "HPLConfig.tuned needs the autotuner and the power engine, "
-            "which the port does not have yet (ROADMAP A5 and A3)")
+    def tuned(self, device="cuda") -> "HPLConfig":
+        """Blocking/lookahead from the autotune cache for this problem
+        size and ``device`` (``repro_torch.autotune``; the analytic
+        searcher runs once on a cache miss) — replaces the hard-coded
+        block constants.  The caller's mode, dtype and seed are kept."""
+        from repro_torch.autotune import tuned_config
+        best = tuned_config("hpl", (self.n,), device=device)
+        return HPLConfig(n=self.n, block=int(best["block"]),
+                         lookahead=int(best["lookahead"]),
+                         mode=self.mode, dtype=self.dtype,
+                         seed=self.seed)
 
 
 SMOKE_HPL = HPLConfig(n=192, block=32)

@@ -8,7 +8,8 @@ Two operating modes (paper §2):
 
 The energy plan takes its roofline terms and watts from the port's chip
 table (``repro_torch.power.model.H100_SXM``), where the JAX version reads
-TPU constants.  ``tuned=True`` needs the autotuner (ROADMAP A5).
+TPU constants.  ``tuned=True`` takes the blocking from the port's
+autotuner (``HPLConfig.tuned``).
 """
 from __future__ import annotations
 
@@ -75,11 +76,12 @@ def linpack_run(cfg: HPLConfig, *, energy: Optional[EnergyConfig] = None,
     ``plan_frequency``, and the run is emitted into ``recorder`` (or a
     private bus) at the plan's chip watts over the measured wall time,
     after anything already on the bus.  ``recorder`` without ``energy``
-    records nothing, as in the JAX version.  ``tuned=True`` raises
-    ``NotImplementedError`` (``HPLConfig.tuned``).
+    records nothing, as in the JAX version.  ``tuned=True`` replaces the
+    blocking and lookahead by the autotuner's for ``cfg.n`` on ``device``
+    (``HPLConfig.tuned``), keeping the mode.
     """
     if tuned:
-        cfg = cfg.tuned()
+        cfg = cfg.tuned(device)
     if cfg.dtype != "float32":
         raise ValueError(f"the port runs HPL in float32, got {cfg.dtype!r}")
     dev = resolve_device(device)

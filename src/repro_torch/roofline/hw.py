@@ -15,6 +15,7 @@ PEAK_BF16_FLOPS = 989e12       # bf16 on the tensor cores, dense
 HBM_BW = 3.35e12               # bytes/s, HBM3
 HBM_PER_CHIP = 80e9            # bytes (80 GB)
 POWER_LIMIT_W = 700.0          # maximum board power
+SM_COUNT = 132                 # streaming multiprocessors
 
 # L-CSC reference constants, for the paper-reproduction models
 S9150_PEAK_FP64 = 2.53e12

@@ -212,9 +212,8 @@ def test_dpm_ladder_is_the_jax_autotuners():
 
 
 def test_recommended_op_is_the_jax_autotuners_pick():
-    """The port has no autotuner: it takes the Green500 point, which the
-    JAX package's coordinate-descent search rediscovers.  A drift of
-    either shows here."""
+    """The port's own coordinate-descent search picks the Green500 point,
+    as the JAX package's does.  A drift of either shows here."""
     got = TSch.Scheduler()._recommended_op()
     assert got == TM.OperatingPoint.green500()
     assert _op_key(got) == _op_key(recommended_operating_point())
@@ -368,9 +367,26 @@ def test_hpl_workload_runs_on_the_cpu():
 
 
 def test_hpl_workload_tuned_raises():
-    with pytest.raises(NotImplementedError, match="autotuner"):
-        TW.HPLWorkload(cfg=HPLConfig(n=64, block=16), tuned=True,
-                       device="cpu").execute(TM.OperatingPoint.green500())
+    """``HPLWorkload(tuned=True)`` (which raised before the port had an
+    autotuner) runs the autotuner's blocking, the JAX package's."""
+    from repro.autotune import TuneCache as JCache
+    from repro.autotune import set_default_cache as jset
+    from repro.configs.hpl import HPLConfig as JHPLConfig
+    from repro_torch.autotune import TuneCache, set_default_cache
+    set_default_cache(TuneCache())
+    jset(JCache())
+    try:
+        got = TW.HPLWorkload(cfg=HPLConfig(n=64, block=16), tuned=True,
+                             device="cpu").execute(
+                                 TM.OperatingPoint.green500())
+        want = JCl.HPLWorkload(cfg=JHPLConfig(n=64, block=16),
+                              tuned=True).execute(
+                                  TM.OperatingPoint.green500())
+    finally:
+        set_default_cache(None)
+        jset(None)
+    assert got.details["passed"] and want.details["passed"]
+    assert got.details["block"] == want.details["block"] != 16
 
 
 def _jax_field(lattice, seed):

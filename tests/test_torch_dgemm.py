@@ -62,10 +62,21 @@ def test_tiles_must_divide(tiles):
         ops.dgemm(tx, ty, **tiles)
 
 
-def test_tuned_raises():
+def test_tuned_raises(tmp_path):
+    """``tuned=True`` (which raised before the port had an autotuner)
+    resolves the tiles through the cache on the CPU, keyed ``torch-cpu``,
+    and gives the plain version's result."""
+    from repro_torch.autotune import TuneCache, set_default_cache
     tx, ty, _, _ = _operands(128, 128, 128, "float32")
-    with pytest.raises(NotImplementedError, match="autotuner"):
-        ops.dgemm(tx, ty, tuned=True)
+    cache = TuneCache(tmp_path / "k.json")
+    set_default_cache(cache)
+    try:
+        assert torch.equal(ops.dgemm(tx, ty, tuned=True),
+                           ref.dgemm_ref(tx, ty))
+        entry = cache.get("dgemm", (128, 128, 128), "torch-cpu")
+    finally:
+        set_default_cache(None)
+    assert entry is not None and entry.config["bm"] in (64, 128)
 
 
 def test_ref_out_dtype():

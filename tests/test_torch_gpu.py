@@ -325,6 +325,129 @@ def test_blocked_lu_on_the_card_matches_the_cpu(cuda, lookahead):
                                atol=2e-2)
 
 
+# the GEMM's two tiles: the 64-row tile gives the 128-row tile's bits (both
+# sum each output over k in one order) on ragged shapes, views and both
+# dtypes, product and update
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,n,k", GEMM_SHAPES + [(1024, 1024, 256),
+                                                (65, 129, 33)])
+def test_gemm_tiles_agree_bit_for_bit(cuda, m, n, k, dtype):
+    x, y = _gemm_operands(m, n, k, dtype, cuda, seed=2)
+    before = dict(G.LAUNCHES)
+    big = G.dgemm(x, y)
+    small = G.dgemm(x, y, bm=64)
+    launched = 1 if m and n else 0
+    assert G.LAUNCHES["dgemm_64x128"] == before["dgemm_64x128"] + launched
+    assert G.LAUNCHES["dgemm_128x128"] == before["dgemm_128x128"] + launched
+    assert G.LAUNCHES["dgemm"] == before["dgemm"] + 2 * launched
+    assert torch.equal(small, big)
+    torch.testing.assert_close(small, gref.dgemm_ref(x, y), **GEMM_TOL[dtype])
+    c = torch.randn(m, n, generator=torch.Generator().manual_seed(m)).to(
+        cuda, dtype)
+    c64 = c.clone()
+    G.dgemm_update_(c, x, y)
+    G.dgemm_update_(c64, x, y, bm=64)
+    assert torch.equal(c64, c)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("off", [0, 3])
+def test_gemm_tiles_agree_on_views(cuda, off, dtype):
+    """HPL's update on views of one matrix (aligned and not) with either
+    tile, and a product of unaligned views."""
+    n, nb = 1024, 128
+    g = torch.Generator().manual_seed(off)
+    a = torch.randn(n, n, generator=g).to(cuda, dtype)
+    got = {}
+    for bm in (128, 64):
+        t = a.clone()
+        k0 = 256 + off
+        k1 = k0 + nb
+        G.dgemm_update_(t[k1:, k1:], t[k1:, k0:k1], t[k0:k1, k1:], bm=bm)
+        got[bm] = t
+        x, y = a[off:off + 70, off:off + 19], a[off + 100:off + 119, :38]
+        got[(bm, "product")] = G.dgemm(x, y, torch.float32, bm=bm)
+    assert torch.equal(got[64], got[128])
+    assert torch.equal(got[(64, "product")], got[(128, "product")])
+    want = a.clone()
+    k0 = 256 + off
+    k1 = k0 + nb
+    gref.dgemm_update_ref_(want[k1:, k1:], want[k1:, k0:k1],
+                           want[k0:k1, k1:])
+    torch.testing.assert_close(got[64], want, **GEMM_TOL[dtype])
+
+
+def test_gemm_tile_refusal(cuda):
+    x, y = _gemm_operands(64, 64, 64, torch.float32, cuda)
+    with pytest.raises(ValueError, match="tiles of"):
+        G.dgemm(x, y, bm=96)
+
+
+@pytest.mark.parametrize("bm, rows", [(64, 64), (32, 64), (None, 128),
+                                      (128, 128), (256, 128)])
+def test_ops_dgemm_launches_the_tile_bm_resolves_to(cuda, bm, rows):
+    x, y = _gemm_operands(256, 128, 384, torch.float32, cuda)
+    before = dict(G.LAUNCHES)
+    got = gops.dgemm(x, y, bm=bm, bn=128, bk=128)
+    for r in G.TILE_ROWS:
+        key = f"dgemm_{r}x128"
+        assert G.LAUNCHES[key] == before[key] + (r == rows)
+    torch.testing.assert_close(got, gref.dgemm_ref(x, y),
+                               **GEMM_TOL[torch.float32])
+
+
+def test_tuned_dgemm_on_the_card_keys_by_the_card(cuda):
+    from repro_torch.autotune import TuneCache, set_default_cache, tuned_config
+    cache = TuneCache()
+    set_default_cache(cache)
+    try:
+        x, y = _gemm_operands(1024, 1024, 256, torch.float32, cuda)
+        before = dict(G.LAUNCHES)
+        got = gops.dgemm(x, y, tuned=True)
+        name = torch.cuda.get_device_name(cuda)
+        entry = cache.get("dgemm", (1024, 256, 1024), name)
+        assert entry is not None and entry.config["bm"] == 64
+        assert G.LAUNCHES["dgemm_64x128"] == before["dgemm_64x128"] + 1
+        torch.testing.assert_close(got, gref.dgemm_ref(x, y),
+                                   **GEMM_TOL[torch.float32])
+        assert tuned_config("hpl", (1024,)) == tuned_config(
+            "hpl", (1024,), device=cuda)
+        assert cache.keys() == tuple(sorted(
+            [f"dgemm|1024x256x1024|{name}", f"hpl|1024|{name}"]))
+    finally:
+        set_default_cache(None)
+
+
+def test_measured_dgemm_model_on_the_card(cuda):
+    from repro_torch.autotune import MeasuredDgemmModel, tune_dgemm_tiles
+    model = MeasuredDgemmModel(1024, 256, 1024, reps=5)
+    before = dict(G.LAUNCHES)
+    for bm in (128, 64):
+        perf, power = model.evaluate({"bm": bm, "bn": 128, "bk": 16})
+        assert perf > 0 and power > 0
+    assert G.LAUNCHES["dgemm_64x128"] > before["dgemm_64x128"]
+    assert G.LAUNCHES["dgemm_128x128"] > before["dgemm_128x128"]
+    assert tune_dgemm_tiles(1024, 256, 1024, measured=True).evaluations == 2
+
+
+def test_tuned_hpl_on_the_card(cuda):
+    from repro_torch.autotune import TuneCache, set_default_cache
+    from repro_torch.configs.hpl import HPLConfig
+    from repro_torch.hpl import linpack_run
+    set_default_cache(TuneCache())
+    try:
+        cfg = HPLConfig(n=1024).tuned()
+        before = G.LAUNCHES["dgemm_128x128"]
+        res = linpack_run(cfg)
+        again = linpack_run(HPLConfig(n=1024, mode="efficiency"), tuned=True)
+    finally:
+        set_default_cache(None)
+    assert (cfg.block, cfg.lookahead) == (256, 1)
+    assert res.passed and res.block == 256 and res.gflops > 0
+    assert again.passed and again.mode == "efficiency"
+    assert G.LAUNCHES["dgemm_128x128"] > before
+
+
 # the RMSNorm kernel: tests/test_kernels.py::test_rmsnorm_sweep's
 # tolerances, ragged row counts, float32 and bfloat16 (x and w each)
 RMS_TOL = {torch.float32: 1e-5, torch.bfloat16: 0.05}

@@ -162,18 +162,41 @@ def test_hpl_config_matches_jax(cfg):
     assert vars(got.efficiency()) == vars(want.efficiency())
 
 
+@pytest.fixture
+def fresh_cache():
+    """Each package's default autotune cache, empty and in memory."""
+    from repro.autotune import TuneCache as JCache
+    from repro.autotune import set_default_cache as jset
+    from repro_torch.autotune import TuneCache, set_default_cache
+    set_default_cache(TuneCache())
+    jset(JCache())
+    yield
+    set_default_cache(None)
+    jset(None)
+
+
 @pytest.mark.parametrize("kwargs", [dict(energy=EnergyConfig()),
                                     dict(recorder=TraceRecorder()),
                                     dict()])
-def test_unported_options_raise(kwargs):
-    # tuned=True needs the autotuner (ROADMAP A5), whatever else is asked
-    with pytest.raises(NotImplementedError, match="autotuner"):
-        linpack_run(TH.SMOKE_HPL, device="cpu", tuned=True, **kwargs)
+def test_unported_options_raise(fresh_cache, kwargs):
+    """``tuned=True`` (which raised before the port had an autotuner)
+    runs with each other option: the JAX package's tuned blocking, the
+    energy plan and the trace as without it."""
+    got = linpack_run(TH.SMOKE_HPL, device="cpu", tuned=True, **kwargs)
+    want = jax_linpack_run(JH.SMOKE_HPL, tuned=True)
+    assert got.passed and want.passed
+    assert (got.block, got.mode) == (want.block, want.mode)
+    assert got.block != TH.SMOKE_HPL.block
+    assert (got.energy_plan is None) == ("energy" not in kwargs)
+    assert (got.power_trace is None) == ("energy" not in kwargs)
 
 
-def test_tuned_config_raises():
-    with pytest.raises(NotImplementedError, match="autotuner"):
-        TH.DEFAULT_HPL.tuned()
+def test_tuned_config_raises(fresh_cache):
+    """``HPLConfig.tuned`` (which raised before the port had an
+    autotuner) equals the JAX package's, field for field."""
+    for cfg in (TH.DEFAULT_HPL, TH.HPLConfig(n=4096, mode="efficiency")):
+        want = JH.HPLConfig(**vars(cfg)).tuned()
+        assert vars(cfg.tuned(device="cpu")) == vars(want)
 
 
 def test_linpack_run_defaults_to_the_card(monkeypatch):
