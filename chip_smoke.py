@@ -93,7 +93,25 @@ Phases (one line each, or a few):
      at n = 4096 timed on the card twice (``MeasuredHPLModel``, the
      fastest of 3 runs a point: each run's wall and residual, each
      point's GFLOP/s, each search's pick) beside the analytic pick, and
-     ``HPLConfig(n=32768).tuned()``'s blocking (not run).
+     ``HPLConfig(n=32768).tuned()``'s blocking (not run);
+ 16. the online simulator and trace replay on the card: (a)
+     ``simulate(..., execute=True)`` of two HPL jobs at n = 4096 and three
+     LQCD solves on the smoke lattice (phase 13's calibration) on two
+     L-CSC nodes, with Weibull failures (seed 3 kills an HPL attempt) and
+     Daly checkpoints: placements, records, outages, stats and the merged
+     trace equal ``execute=False``'s bit for bit, every completed job has
+     its result (HPL's residual passes, each solve converges), B1-B3
+     launch as the results imply; (b) a seeded Poisson trace of 8
+     requests (prompts 512 and 2048, generation 16 and 32) replayed
+     through the continuous-batching engine with
+     ``ExecutedGroupRuntime(mamba2-370m)`` at full width on the card:
+     stats and trace equal the replay without the runtime, each request
+     carries its tokens, B4 and B5 launch 97 per forward and 48 per chunk
+     of each group's prefill, the first group's tokens equal the steps
+     called directly, and phase 11's cut model gives the same tokens
+     through the runtime on the card and on the CPU; each group's
+     measured prefill and decode times beside the engine's analytic
+     ones.
 Every time is taken by ``repro_torch.kernels.timing``: the calls are
 queued behind a sleep kernel, and a kernel's or a library call's reading
 that the host paced is taken again behind a longer sleep (a plain
@@ -149,6 +167,12 @@ CUT_SEED = 37                   # see phase 11
 # an NVIDIA H100 80GB HBM3; held at two ulps of the largest logit
 CUT_LOGIT_TOL = 0.0625
 PROFILE_DECODE_STEPS = 16
+SIM_HPL_N, SIM_HPL_NB = 4096, 256      # phase 16a's HPL jobs
+SIM_MTBF_S, SIM_REPAIR_S = 1000.0, 300.0
+SIM_SEED = 3                    # its failure draws: kills one HPL attempt
+REPLAY_N, REPLAY_BATCH = 8, 4   # phase 16b's requests, the engine's slots
+REPLAY_PROMPTS, REPLAY_GENS = (512, 2048), (16, 32)
+REPLAY_SEED = 0                 # arrivals at 4x capacity: a 3-request group
 WATT_LEAD_S, WATT_WINDOW_S = 1.0, 3.0   # see phase 13
 WATT_QUERY = ["nvidia-smi", "--query-gpu=power.draw,clocks.sm",
               "--format=csv,noheader,nounits", "-lms", "100"]
@@ -343,6 +367,13 @@ def main() -> int:
     from repro_torch.power import model as PM
     from repro_torch.roofline import hw
     from repro_torch.models import init_params
+    from repro_torch.cluster import (CheckpointPolicy, ClusterTopology,
+                                     simulate)
+    from repro_torch.configs.lcsc_lqcd import SMOKE_LATTICE
+    from repro_torch.distributed.fault import WeibullFailureModel
+    from repro_torch.serve import (ContinuousBatchingEngine,
+                                   ExecutedGroupRuntime, ServeCostModel,
+                                   poisson_trace)
     from repro_torch.runtime.steps import (grow_decode_cache,
                                            make_decode_step,
                                            make_prefill_step)
@@ -1541,7 +1572,204 @@ def main() -> int:
     set_default_cache(None)
     print(f"[15] phase 15 took {time.perf_counter() - t15:.1f} s ({card})")
 
-    print(f"[15] chip_smoke.py took {time.perf_counter() - t_start:.1f} s "
+    # 16. the online simulator and trace replay, executed on the card
+    torch.cuda.empty_cache()
+    t16 = time.perf_counter()
+    sim_hpl = HPLConfig(n=SIM_HPL_N, block=SIM_HPL_NB)
+
+    def sim_arrivals():
+        lq = dict(lattice=SMOKE_LATTICE, calibration=cal)
+        return [(0.0, HPLWorkload(cfg=sim_hpl)),
+                (60.0, LQCDSolveWorkload(**lq)),
+                (120.0, LQCDSolveWorkload(name="lqcd2", seed=1, **lq)),
+                (300.0, HPLWorkload(name="hpl2", cfg=sim_hpl)),
+                (900.0, LQCDSolveWorkload(name="lqcd3", seed=2, **lq))]
+
+    sim_kw = dict(topology=ClusterTopology(n_nodes=2), dt_s=30.0,
+                  failure_model=WeibullFailureModel(
+                      mtbf_s=SIM_MTBF_S, shape=1.0, repair_s=SIM_REPAIR_S),
+                  seed=SIM_SEED, checkpoint=CheckpointPolicy())
+    plain_sim = simulate(sim_arrivals(), **sim_kw)
+    for mod in (K, G, RK, SK):
+        mod.reset_launches()
+    t0 = time.perf_counter()
+    ex_sim = simulate(sim_arrivals(), execute=True, **sim_kw)
+    torch.cuda.synchronize()
+    sim_wall = time.perf_counter() - t0
+    sim_launches = {**K.LAUNCHES, **G.LAUNCHES, **RK.LAUNCHES,
+                    **SK.LAUNCHES}
+
+    def sim_view(r):
+        tr = r.trace
+        return ([(p.job.name, p.start, p.end, tuple(p.chips), p.op)
+                 for p in r.schedule.placements],
+                [(q.uid, q.start_s, q.end_s, q.requeues, q.state,
+                  q.completed_fraction, q.checkpoints) for q in r.records],
+                r.outages, dataclasses.asdict(r.stats), tr.meta,
+                [tr.t, tr.flops_rate] + [tr.components[k]
+                                         for k in sorted(tr.components)]
+                + [tr.aux[k] for k in sorted(tr.aux)],
+                sorted(tr.components), sorted(tr.aux))
+
+    a, b = sim_view(ex_sim), sim_view(plain_sim)
+    same = a[:5] == b[:5] and a[6:] == b[6:] and len(a[5]) == len(b[5]) \
+        and all(np.array_equal(x, y) for x, y in zip(a[5], b[5]))
+    st = ex_sim.stats
+    placed = [(q.job.name, round(q.start, 1), round(q.end, 1), len(q.chips))
+              for q in ex_sim.schedule.placements]
+    print(f"[16a] simulate(execute=True) on {len(ex_sim.records)} arrivals "
+          f"({SIM_HPL_N}-HPL x2, {SMOKE_LATTICE.shape} LQCD x3) over 2 "
+          f"nodes: {st.node_failures} node failures, {st.requeues} "
+          f"requeues, {st.checkpoints} checkpoints, makespan "
+          f"{st.makespan_s:.1f} s (modelled); outages {ex_sim.outages}; "
+          f"placements {placed}; "
+          f"equal to execute=False bit for bit: {same}; the executions "
+          f"took {sim_wall:.2f} s ({card})")
+    check(same, "the executed simulator's placements, records, outages, "
+                "stats and trace equal execute=False's bit for bit")
+    check(st.requeues >= 1 and st.checkpoints >= 1,
+          f"seed {SIM_SEED} kills and requeues a job, and a checkpoint "
+          f"is written")
+    done = [q.uid for q in ex_sim.records if q.state == "completed"]
+    check(sorted(ex_sim.results) == done == list(range(5)),
+          "every arrival completed and carries its WorkloadResult")
+    steps16 = SIM_HPL_N // SIM_HPL_NB
+    want16 = dict.fromkeys(sim_launches, 0)
+    for uid in done:
+        r = ex_sim.results[uid]
+        print(f"[16a] uid {uid} {r.name} at {r.details['op_f_mhz']:.0f} "
+              f"MHz: {r.perf_gflops:.2f} GFLOP/s over {r.wall_s:.6f} s, "
+              f"{r.energy_j:.4f} J; "
+              + (f"residual {r.details['residual']:.4e}, passed "
+                 f"{r.details['passed']}" if r.kind == "hpl" else
+                 f"{r.details['iters']} + {r.details['outer_iters']} "
+                 f"normal ops, rel. residual "
+                 f"{r.details['rel_residual']:.3e}"))
+        if r.kind == "hpl":
+            check(r.details["passed"], f"uid {uid}: HPL's residual passes")
+            n_gemm = (steps16 - 1) + (steps16 - 2)
+            want16["dgemm"] += n_gemm
+            want16["dgemm_128x128"] += n_gemm
+        else:
+            check(r.details["converged"]
+                  and r.details["rel_residual"] <= 1e-6,
+                  f"uid {uid}: the LQCD solve converges")
+            want16["dslash_eo_split"] += (4 * r.details["iters"]
+                                          + 4 * r.details["outer_iters"]
+                                          + 2)
+            want16["dslash_split"] += 1
+    print(f"[16a] launches {sim_launches} (want {want16})")
+    check(sim_launches == want16, "B1-B3 launched as the executed "
+                                  "workloads' steps and iterations imply")
+
+    # 16b. trace replay with executed tokens, mamba2-370m at full width
+    cost = ServeCostModel(ARCH, max_batch=REPLAY_BATCH,
+                          prompt_len=max(REPLAY_PROMPTS),
+                          gen=max(REPLAY_GENS), smoke=False)
+    plan16, _, _ = cost.plan()
+    t_pre16, _ = cost.prefill_cost(max(REPLAY_PROMPTS), REPLAY_BATCH)
+    rate = 4.0 * REPLAY_BATCH / (t_pre16 + max(REPLAY_GENS)
+                                 * plan16.step_time_s)
+    requests = poisson_trace(REPLAY_N, rate, prompt_lens=REPLAY_PROMPTS,
+                             gen_lens=REPLAY_GENS, seed=REPLAY_SEED)
+    bare = ContinuousBatchingEngine(cost).replay(requests)
+    runtime = ExecutedGroupRuntime(ARCH, smoke=False, seed=REPLAY_SEED,
+                                   device="cuda")
+    for mod in (K, G, RK, SK):
+        mod.reset_launches()
+    t0 = time.perf_counter()
+    res16 = ContinuousBatchingEngine(cost, runtime=runtime).replay(requests)
+    torch.cuda.synchronize()
+    replay_wall = time.perf_counter() - t0
+    replay_launches = {**K.LAUNCHES, **G.LAUNCHES, **RK.LAUNCHES,
+                       **SK.LAUNCHES}
+    tr_a, tr_b = res16.trace, bare.trace
+    same = (dataclasses.asdict(res16.stats) == dataclasses.asdict(bare.stats)
+            and np.array_equal(tr_a.t, tr_b.t)
+            and np.array_equal(tr_a.flops_rate, tr_b.flops_rate)
+            and sorted(tr_a.components) == sorted(tr_b.components)
+            and all(np.array_equal(tr_a.components[k], tr_b.components[k])
+                    for k in tr_b.components)
+            and sorted(tr_a.aux) == sorted(tr_b.aux)
+            and all(np.array_equal(tr_a.aux[k], tr_b.aux[k])
+                    for k in tr_b.aux)
+            and [(q.admit_s, q.first_token_s, q.done_s)
+                 for q in res16.records]
+            == [(q.admit_s, q.first_token_s, q.done_s)
+                for q in bare.records])
+    print(f"[16b] replayed {REPLAY_N} requests (prompts "
+          f"{requests.prompt_len.tolist()}, generation "
+          f"{requests.gen_len.tolist()}) through {len(runtime.groups)} "
+          f"groups of {cfg.name} at full width in {replay_wall:.2f} s on "
+          f"the card; the engine's report: {res16.stats.summary()} "
+          f"(modelled, {cost.chip.name}); stats and trace equal the "
+          f"replay without the runtime bit for bit: {same}")
+    check(same, "the runtime only attaches tokens: stats, records' times "
+                "and trace equal the bare replay's")
+    for q in res16.records:
+        check(q.tokens is not None and q.tokens.shape == (q.gen_len,)
+              and bool(np.all((q.tokens >= 0) & (q.tokens < V))),
+              f"request {q.idx} carries {q.gen_len} tokens in [0, {V})")
+    want_b = dict.fromkeys(replay_launches, 0)
+    for s16, n16, g16, pre_s, dec_s in runtime.groups:
+        want_b["rmsnorm"] += (2 * L + 1) * (1 + g16)
+        want_b["ssd_chunk"] += L * -(-s16 // sc.chunk_size)
+        print(f"[16b] group of {n16} x {s16} prompt tokens, {g16} steps: "
+              f"prefill {pre_s * 1e3:.2f} ms measured against "
+              f"{cost.prefill_cost(s16, n16)[0] * 1e3:.4f} ms analytic; "
+              f"decode {dec_s / g16 * 1e3:.2f} ms per step measured "
+              f"against {plan16.step_time_s * 1e3:.4f} ms analytic "
+              f"(freq {plan16.freq_scale:.3f}, {plan16.power_w:.1f} W "
+              f"modelled) ({card})")
+    print(f"[16b] launches {replay_launches} (want {want_b}); sample "
+          f"{res16.records[0].tokens[:16].tolist()}")
+    check(replay_launches == want_b, "B4 launched 97 times per forward and "
+          "B5 48 times per chunk of each group's prefill, nothing else")
+    # the first group: the requests admitted first (each group starts its
+    # prefill at its own time), prompted by the runtime's first draw
+    s0, n0, g0 = runtime.groups[0][:3]
+    t_first = min(q.admit_s for q in res16.records)
+    first = [q for q in res16.records if q.admit_s == t_first]
+    prompt0 = torch.from_numpy(np.random.default_rng(REPLAY_SEED).integers(
+        0, V, (n0, s0))).to(dev, torch.int32)
+    logits, cache = prefill(runtime.params, {"tokens": prompt0})
+    cache = grow_decode_cache(cfg, cache, n0, s0 + g0)
+    direct = [torch.argmax(logits[:, :V], -1)[:, None].to(torch.int32)]
+    for _ in range(g0 - 1):
+        logits, cache = decode(runtime.params, direct[-1], cache)
+        direct.append(torch.argmax(logits[:, :V], -1)[:, None]
+                      .to(torch.int32))
+    direct = torch.cat(direct, 1).cpu().numpy()
+    check(len(first) == n0 and all(
+        q.prompt_len == s0 and np.array_equal(q.tokens, row[:q.gen_len])
+        for q, row in zip(first, direct)),
+          "the first group's tokens equal forward_prefill/forward_decode "
+          "called directly on the card")
+    del runtime, logits, cache
+    p_gpu = copy.deepcopy(p_cpu).to(dev)
+    cut_toks = {}
+    for where, params16 in (("cpu", p_cpu), ("cuda", p_gpu)):
+        rt = ExecutedGroupRuntime(cfg=cut, params=params16, seed=CUT_SEED,
+                                  device=where)
+        cut_toks[where] = rt.run_group(CUT_PROMPT, CUT_STEPS + 1, 1)
+    print(f"[16b] {CUT_LAYERS} layers at full width through the runtime: "
+          f"{cut_toks['cpu'][0].tolist()} (CPU), "
+          f"{cut_toks['cuda'][0].tolist()} (card)")
+    check(np.array_equal(cut_toks["cpu"], cut_toks["cuda"])
+          and np.array_equal(cut_toks["cpu"], toks_c.numpy()),
+          "the cut model's tokens through the runtime: the card's equal "
+          "the CPU's, and phase 11's")
+    for rec in records:
+        rec["online"] = {"launches_simulate_execute":
+                         sim_launches[rec["name"]],
+                         "launches_replay_executed":
+                         replay_launches[rec["name"]]}
+    del p_gpu
+    t16 = time.perf_counter() - t16
+    print(f"[16] phase 16 took {t16:.1f} s ({card})")
+    check(t16 <= 60.0, "phase 16 takes at most 60 s")
+
+    print(f"[16] chip_smoke.py took {time.perf_counter() - t_start:.1f} s "
           f"in all")
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {

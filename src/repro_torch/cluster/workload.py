@@ -15,8 +15,11 @@ engine's synthetic load shapes each have their own surface.  A
 Adapters register themselves in the port's own ``WORKLOAD_REGISTRY`` so
 callers can build batches by name (``make_workload("hpl")``).  The HPL
 and LQCD adapters run the port's code on ``device`` (the card by
-default).  The JAX package's ``train``, ``serve`` and ``serve_replay``
-adapters are not ported yet: ``make_workload`` raises for them.
+default).  The ``train`` and ``serve`` adapters are analytic: roofline
+costs (``repro_torch.roofline.analytic``) and a DVFS plan, priced at
+``chip`` (an H100 SXM by default, where the JAX package reads its TPU
+constants).  ``serve_replay`` registers when ``repro_torch.serve.replay``
+is imported, which ``make_workload`` does on first use.
 """
 from __future__ import annotations
 
@@ -30,7 +33,8 @@ from repro_torch.cluster.scheduler import Job
 from repro_torch.config import EnergyConfig
 from repro_torch.core.energy.dvfs import plan_frequency
 from repro_torch.lqcd.su3 import random_field_and_source
-from repro_torch.power.model import STOCK_MHZ, OperatingPoint
+from repro_torch.power.model import H100_SXM, STOCK_MHZ, ChipTable, \
+    OperatingPoint
 from repro_torch.power.trace import PowerTrace, TraceRecorder
 
 
@@ -103,25 +107,20 @@ def list_workloads() -> List[str]:
     return sorted(WORKLOAD_REGISTRY)
 
 
-# the JAX package's kinds the port does not run yet, and where they wait
-_UNPORTED_KINDS = {
-    "train": "ROADMAP A6 (the train step) and A7 (roofline.analytic)",
-    "serve": "ROADMAP A6 (the attention families) and A7 "
-             "(roofline.analytic)",
-    "serve_replay": "ROADMAP A6 and A7 (serve/*)",
-}
+# kinds whose adapter lives outside this module and registers on import
+_LAZY_KINDS = {"serve_replay": "repro_torch.serve.replay"}
 
 
 def make_workload(kind: str, **kwargs) -> Workload:
-    if kind in _UNPORTED_KINDS:
-        raise NotImplementedError(
-            f"workload kind {kind!r} is not in the port yet: "
-            f"{_UNPORTED_KINDS[kind]}")
+    if kind not in WORKLOAD_REGISTRY and kind in _LAZY_KINDS:
+        import importlib
+        importlib.import_module(_LAZY_KINDS[kind])
     try:
         cls = WORKLOAD_REGISTRY[kind]
     except KeyError:
         raise KeyError(f"unknown workload kind {kind!r}; registered: "
-                       f"{list_workloads()}") from None
+                       f"{list_workloads()} (+lazy: {sorted(_LAZY_KINDS)})"
+                       ) from None
     return cls(**kwargs)
 
 
@@ -139,12 +138,12 @@ def _result(wl, op: OperatingPoint, trace: PowerTrace, perf_gflops: float,
         details={"op_f_mhz": op.f_mhz, **details})
 
 
-def _plan_at(ac, mode: str, op: Optional[OperatingPoint]):
-    """DVFS plan for a roofline cost, with the clock grid capped at the
-    operating point's frequency (relative to the stock clock) — how a
-    scheduler-chosen derate (e.g. a power cap) reaches the chip-side
-    frequency planner.  No adapter of the port calls it yet: the JAX
-    package's train and serve adapters do (ROADMAP A6/A7)."""
+def _plan_at(ac, mode: str, op: Optional[OperatingPoint],
+             chip: ChipTable = H100_SXM):
+    """DVFS plan for a roofline cost on ``chip``, with the clock grid
+    capped at the operating point's frequency (relative to the stock
+    clock) — how a scheduler-chosen derate (e.g. a power cap) reaches the
+    chip-side frequency planner.  The train and serve adapters call it."""
     cfg = EnergyConfig(mode=mode)
     if op is not None:
         cap = op.f_mhz / STOCK_MHZ
@@ -154,7 +153,7 @@ def _plan_at(ac, mode: str, op: Optional[OperatingPoint]):
             or (float(np.clip(cap, 0.3, 1.0)),)
         cfg = EnergyConfig(mode=mode, freq_grid=grid)
     return plan_frequency(ac.compute_s, ac.memory_s, ac.collective_s,
-                          flops_per_step=ac.flops, cfg=cfg)
+                          flops_per_step=ac.flops, cfg=cfg, chip=chip)
 
 
 # ---------------------------------------------------------------------------
@@ -298,6 +297,165 @@ class LQCDSolveWorkload:
                        outer_iters=int(getattr(res, "outer_iters", 0)),
                        rel_residual=float(res.rel_residual),
                        converged=bool(res.converged), **extra)
+
+
+@register_workload("train")
+@dataclass
+class TrainWorkload:
+    """The ``launch.train`` entry point's energy/telemetry path behind the
+    Workload API: roofline step cost + DVFS plan + per-step chip-power
+    emission, priced at ``chip``.  ``execute`` is analytic (no steps
+    run), so schedulers can run it anywhere; the port's train step comes
+    with ROADMAP A6."""
+
+    name: str = "train"
+    arch: str = "olmo-1b"
+    steps: int = 8
+    batch: int = 8
+    seq: int = 128
+    smoke: bool = True
+    remat: str = "none"            # must match the compiled step (the
+                                   # launch.train entry uses remat="none")
+    preferred_op: Optional[OperatingPoint] = None
+    chip: ChipTable = H100_SXM
+    _cost_cache: Optional[Any] = field(default=None, init=False,
+                                       repr=False, compare=False)
+
+    def _cost(self):
+        if self._cost_cache is None:
+            from repro_torch.config import (SINGLE_POD_MESH, ShapeConfig,
+                                            TrainConfig, get_arch)
+            from repro_torch.roofline.analytic import cost_for
+            entry = get_arch(self.arch)
+            cfg = entry.smoke() if self.smoke else entry.full()
+            shape = ShapeConfig("custom", self.seq, self.batch, "train")
+            self._cost_cache = cost_for(cfg, shape, SINGLE_POD_MESH,
+                                        TrainConfig(remat=self.remat),
+                                        chip=self.chip)
+        return self._cost_cache
+
+    def energy_plan(self, mode: str = "efficiency",
+                    op: Optional[OperatingPoint] = None):
+        """The DVFS plan for this step shape (shared with the launch entry
+        point).  ``op`` caps the clock grid at the scheduler-chosen
+        frequency."""
+        ac = self._cost()
+        return _plan_at(ac, mode, op, self.chip), ac
+
+    def job(self) -> Job:
+        ac = self._cost()
+        # model + optimizer working set, with roofline bytes as the proxy
+        mem_gb = max(ac.hbm_bytes / 1e9, 0.1)
+        return Job(self.name, mem_gb,
+                   work_units=self.steps * ac.flops / 1e12,
+                   shardable=True, preferred_op=self.preferred_op,
+                   kind=self.kind, state_bytes=self.state_bytes())
+
+    def state_bytes(self) -> float:
+        # params + optimizer moments (activations are recomputed on
+        # restart) — the roofline HBM footprint is the honest upper bound
+        return float(max(self._cost().hbm_bytes, 1e8))
+
+    def execute(self, op: OperatingPoint, *,
+                recorder: Optional[TraceRecorder] = None) -> WorkloadResult:
+        plan, ac = self.energy_plan(op=op)
+        rec = recorder if recorder is not None \
+            else TraceRecorder(source="workload.train")
+        t0 = rec.t_last
+        step_s = plan.step_time_s
+        for i in range(self.steps + 1):
+            rec.emit(t0 + i * step_s, {"chip": plan.power_w},
+                     flops_rate=0.0 if i == 0 else ac.flops / step_s / 1e9,
+                     freq_scale=plan.freq_scale)
+        trace = rec.trace()
+        wall = self.steps * step_s
+        return _result(self, op, trace, ac.flops / step_s / 1e9, wall,
+                       window=(t0, t0 + wall),
+                       steps=self.steps, dominant=plan.dominant,
+                       freq_scale=plan.freq_scale)
+
+
+@register_workload("serve")
+@dataclass
+class ServeWorkload:
+    """The ``launch.serve`` entry point's energy/telemetry path behind the
+    Workload API: prefill + decode roofline costs, decode-dominated DVFS
+    plan, two-phase chip-power emission, priced at ``chip``."""
+
+    name: str = "serve"
+    arch: str = "llama3-8b"
+    batch: int = 4
+    prompt_len: int = 64
+    gen: int = 32
+    smoke: bool = True
+    kv_int8: bool = False
+    preferred_op: Optional[OperatingPoint] = None
+    chip: ChipTable = H100_SXM
+    _cost_cache: Optional[Any] = field(default=None, init=False,
+                                       repr=False, compare=False)
+
+    def _costs(self):
+        if self._cost_cache is None:
+            from repro_torch.config import (SINGLE_POD_MESH, ShapeConfig,
+                                            get_arch)
+            from repro_torch.roofline.analytic import cost_for
+            entry = get_arch(self.arch)
+            cfg = entry.smoke() if self.smoke else entry.full()
+            total = self.prompt_len + self.gen
+            dec = cost_for(cfg, ShapeConfig("serve", total, self.batch,
+                                            "decode"),
+                           SINGLE_POD_MESH, kv_int8=self.kv_int8,
+                           chip=self.chip)
+            pre = cost_for(cfg, ShapeConfig("serve_prefill", self.prompt_len,
+                                            self.batch, "prefill"),
+                           SINGLE_POD_MESH, kv_int8=self.kv_int8,
+                           chip=self.chip)
+            self._cost_cache = (pre, dec)
+        return self._cost_cache
+
+    def energy_plan(self, mode: str = "efficiency",
+                    op: Optional[OperatingPoint] = None):
+        """Decode-shape DVFS plan (shared with the launch entry point).
+        ``op`` caps the clock grid at the scheduler-chosen frequency."""
+        pre, dec = self._costs()
+        return _plan_at(dec, mode, op, self.chip), pre, dec
+
+    def job(self) -> Job:
+        pre, dec = self._costs()
+        mem_gb = max((pre.hbm_bytes + dec.hbm_bytes) / 1e9, 0.1)
+        work = (pre.flops + self.gen * dec.flops) / 1e12
+        return Job(self.name, mem_gb, work_units=work, shardable=True,
+                   preferred_op=self.preferred_op, kind=self.kind,
+                   state_bytes=self.state_bytes())
+
+    def state_bytes(self) -> float:
+        # serving is stateless (weights are re-loadable, the KV cache is
+        # reconstructible): nothing to checkpoint, retries are the
+        # resilience story (repro_torch.serve.autoscale RetryPolicy)
+        return 0.0
+
+    def execute(self, op: OperatingPoint, *,
+                recorder: Optional[TraceRecorder] = None) -> WorkloadResult:
+        plan, pre, dec = self.energy_plan(op=op)
+        rec = recorder if recorder is not None \
+            else TraceRecorder(source="workload.serve")
+        t0 = rec.t_last
+        t_pre = max(pre.compute_s, pre.memory_s) + pre.collective_s
+        t_dec = self.gen * plan.step_time_s
+        rec.emit(t0, {"chip": plan.power_w}, flops_rate=0.0,
+                 freq_scale=plan.freq_scale)
+        rec.emit(t0 + t_pre, {"chip": plan.power_w},
+                 flops_rate=pre.flops / max(t_pre, 1e-12) / 1e9,
+                 freq_scale=plan.freq_scale)
+        rec.emit(t0 + t_pre + t_dec, {"chip": plan.power_w},
+                 flops_rate=dec.flops / plan.step_time_s / 1e9,
+                 freq_scale=plan.freq_scale)
+        trace = rec.trace()
+        wall = t_pre + t_dec
+        perf = (pre.flops + self.gen * dec.flops) / wall / 1e9
+        return _result(self, op, trace, perf, wall,
+                       window=(t0, t0 + wall), gen=self.gen,
+                       batch=self.batch, dominant=plan.dominant)
 
 
 @register_workload("synthetic")

@@ -1,8 +1,8 @@
 """Configuration of the PyTorch/CUDA port.
 
-Copies of the JAX package's ``SolverConfig``, ``EnergyConfig``, model
-dataclasses and architecture registry: the port keeps its own so that it
-imports nothing of the reference package.
+Copies of the JAX package's ``SolverConfig``, ``EnergyConfig``, model,
+shape, mesh and train dataclasses and architecture registry: the port
+keeps its own so that it imports nothing of the reference package.
 """
 from __future__ import annotations
 
@@ -55,8 +55,7 @@ class EnergyConfig:
 
 # ---------------------------------------------------------------------------
 # Model configuration: copies of the JAX package's ``repro/config.py``
-# dataclasses and architecture registry.  The registry knows only the
-# architectures whose serve path the port runs.
+# dataclasses and architecture registry.
 # ---------------------------------------------------------------------------
 
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
@@ -238,6 +237,96 @@ class ModelConfig:
 
 
 # ---------------------------------------------------------------------------
+# Shapes (the four assigned input shapes)
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                     # train | prefill | decode
+
+
+SHAPES: Dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
+}
+
+
+def shape_applicable(model: ModelConfig,
+                     shape: ShapeConfig) -> Tuple[bool, str]:
+    """Whether a (arch, shape) cell runs; returns (ok, reason-if-skipped)."""
+    if shape.name == "long_500k":
+        sub_quadratic = model.family in ("ssm", "hybrid") \
+            or model.sliding_window > 0
+        if not sub_quadratic:
+            return False, ("pure full-attention arch: 500k decode requires "
+                           "sub-quadratic attention (assignment: skip)")
+    return True, ""
+
+
+# ---------------------------------------------------------------------------
+# Mesh / run configuration
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class MeshConfig:
+    """A logical device mesh, as the analytic roofline divides work over
+    it (the port runs no mesh of its own: ROADMAP A6)."""
+
+    shape: Tuple[int, ...] = (16, 16)
+    axis_names: Tuple[str, ...] = ("data", "model")
+
+    @property
+    def n_devices(self) -> int:
+        n = 1
+        for s in self.shape:
+            n *= s
+        return n
+
+    @property
+    def multi_pod(self) -> bool:
+        return "pod" in self.axis_names
+
+    @property
+    def data_axes(self) -> Tuple[str, ...]:
+        return tuple(a for a in self.axis_names if a in ("pod", "data"))
+
+    @property
+    def data_size(self) -> int:
+        return self.n_devices // self.model_size
+
+    @property
+    def model_size(self) -> int:
+        return self.shape[self.axis_names.index("model")]
+
+
+SINGLE_POD_MESH = MeshConfig((16, 16), ("data", "model"))
+MULTI_POD_MESH = MeshConfig((2, 16, 16), ("pod", "data", "model"))
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    learning_rate: float = 3e-4
+    weight_decay: float = 0.1
+    beta1: float = 0.9
+    beta2: float = 0.95
+    eps: float = 1e-8
+    warmup_steps: int = 100
+    total_steps: int = 1000
+    grad_clip: float = 1.0
+    remat: str = "layer"          # none | layer | block (sqrt-remat)
+    microbatches: int = 1         # grad-accumulation steps per global batch
+    moment_dtype: str = "float32"  # AdamW m/v storage (bf16 for huge models)
+    grad_accum_dtype: str = "float32"
+    grad_compress: bool = False   # int8 cross-pod DP compression
+    seed: int = 0
+
+
+# ---------------------------------------------------------------------------
 # Architecture registry
 # ---------------------------------------------------------------------------
 
@@ -250,8 +339,8 @@ class ArchEntry:
 
 ARCH_REGISTRY: Dict[str, ArchEntry] = {}
 
-# every architecture the JAX package registers; the port runs those in
-# _MODULE_FOR_ID
+# every architecture the JAX package registers, each with its config
+# module; the port's models run the ssm family only (ROADMAP A6)
 ARCH_IDS: List[str] = [
     "whisper-small",
     "grok-1-314b",
@@ -266,7 +355,16 @@ ARCH_IDS: List[str] = [
 ]
 
 _MODULE_FOR_ID = {
+    "whisper-small": "whisper_small",
+    "grok-1-314b": "grok1_314b",
+    "deepseek-v2-236b": "deepseek_v2_236b",
+    "qwen1.5-32b": "qwen15_32b",
+    "minitron-8b": "minitron_8b",
+    "olmo-1b": "olmo_1b",
+    "llama3-8b": "llama3_8b",
     "mamba2-370m": "mamba2_370m",
+    "llava-next-mistral-7b": "llava_next_mistral_7b",
+    "hymba-1.5b": "hymba_1_5b",
 }
 
 
@@ -278,14 +376,9 @@ def register_arch(arch_id: str, full: Callable[[], ModelConfig],
 def _ensure_loaded(arch_id: str) -> None:
     if arch_id in ARCH_REGISTRY:
         return
-    if arch_id not in ARCH_IDS:
-        raise KeyError(f"unknown architecture {arch_id!r}; known: {ARCH_IDS}")
     mod = _MODULE_FOR_ID.get(arch_id)
     if mod is None:
-        raise NotImplementedError(
-            f"the port does not run {arch_id!r} yet: only "
-            f"{sorted(_MODULE_FOR_ID)} (ROADMAP A6: the attention, MLP and "
-            f"MoE families)")
+        raise KeyError(f"unknown architecture {arch_id!r}; known: {ARCH_IDS}")
     importlib.import_module(f"repro_torch.configs.{mod}")
 
 
@@ -300,3 +393,8 @@ def full_config(arch_id: str) -> ModelConfig:
 
 def smoke_config(arch_id: str) -> ModelConfig:
     return get_arch(arch_id).smoke()
+
+
+def all_cells() -> List[Tuple[str, str]]:
+    """All 40 (arch, shape) cells, including SKIP cells."""
+    return [(a, s) for a in ARCH_IDS for s in SHAPES]

@@ -289,7 +289,9 @@ class ChipTable:
     ``idle_w + dyn_compute_w · f² · compute_util + dyn_mem_w · mem_util``:
     the dynamic compute draw scales ~ f·V(f)² ≈ f², the HBM draw does not.
     The f² law is an assumption: the card's clocks cannot be set where its
-    watts were measured, so it was not checked there."""
+    watts were measured, so it was not checked there.  The rates price the
+    analytic roofline (``repro_torch.roofline.analytic``): bf16 peak, HBM,
+    the chip-to-chip link and the link off the node."""
 
     name: str
     idle_w: float            # board watts, nothing running
@@ -299,6 +301,8 @@ class ChipTable:
     peak_f32_flops: float
     peak_bf16_flops: float
     hbm_bw: float            # bytes/s
+    link_bw: float = hw.NVLINK_BW   # bytes/s a chip sends to a peer
+    dcn_bw: float = hw.DCN_BW       # bytes/s a chip sends off its node
 
 
 # Measured on the card by ``chip_smoke.py`` phase [13]: the mean of
@@ -324,7 +328,9 @@ H100_SXM = ChipTable(
     power_limit_w=hw.POWER_LIMIT_W,          # data sheet
     peak_f32_flops=hw.PEAK_F32_FLOPS,        # data sheet
     peak_bf16_flops=hw.PEAK_BF16_FLOPS,      # data sheet
-    hbm_bw=hw.HBM_BW)                        # data sheet
+    hbm_bw=hw.HBM_BW,                        # data sheet
+    link_bw=hw.NVLINK_BW,                    # data sheet
+    dcn_bw=hw.DCN_BW)                        # DGX H100 data sheet
 
 
 def h100_chip_power(freq_scale: float, compute_util: float,

@@ -1,1 +1,2 @@
-"""Roofline constants of the port's device (``hw``)."""
+"""Roofline of the port: the device's constants (``hw``) and the analytic
+per-step cost model (``analytic``)."""

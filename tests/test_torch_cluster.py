@@ -276,7 +276,11 @@ def test_chip_pool_matches_jax():
 # -- the registry and the adapters --------------------------------------------
 
 def test_registry_holds_the_ported_adapters():
-    assert TCl.list_workloads() == ["hpl", "lqcd", "synthetic"]
+    import sys
+    lazy = ["serve_replay"] if "repro_torch.serve.replay" in sys.modules \
+        else []
+    assert TCl.list_workloads() == sorted(
+        ["hpl", "lqcd", "serve", "synthetic", "train"] + lazy)
     assert TCl.make_workload("synthetic").job().kind == "synthetic"
     with pytest.raises(KeyError, match="unknown workload"):
         TCl.make_workload("quantum")
@@ -285,12 +289,20 @@ def test_registry_holds_the_ported_adapters():
         TCl.register_workload("hpl")(type("Again", (), {}))
 
 
-@pytest.mark.parametrize("kind,where", [("train", "ROADMAP A6"),
-                                        ("serve", "ROADMAP A6"),
-                                        ("serve_replay", "ROADMAP A6")])
-def test_unported_kinds_raise(kind, where):
-    with pytest.raises(NotImplementedError, match=where):
-        TCl.make_workload(kind)
+@pytest.mark.parametrize("kind,kw", [("train", dict(steps=3)),
+                                     ("serve", dict(gen=16)),
+                                     ("serve_replay", dict(max_batch=4))])
+def test_unported_kinds_raise(kind, kw):
+    """The JAX package's analytic kinds build in the port (``serve_replay``
+    on first use); priced at the reference's TPU constants their jobs
+    equal its jobs.  Only their model runs still raise (ROADMAP A6)."""
+    from test_torch_analytic import TPU_TABLE
+    a = TCl.make_workload(kind, chip=TPU_TABLE, **kw).job()
+    b = JCl.make_workload(kind, **kw).job()
+    assert (a.name, a.kind, a.shardable, a.mem_gb, a.work_units,
+            a.state_bytes) == (b.name, b.kind, b.shardable, b.mem_gb,
+                               b.work_units, b.state_bytes)
+    assert TCl.make_workload(kind, **kw).chip is TM.H100_SXM
 
 
 @pytest.mark.parametrize("kind", ["hpl", "lqcd", "synthetic"])

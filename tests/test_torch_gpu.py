@@ -778,3 +778,86 @@ def test_hpl_workload_and_run_on_the_card(cuda):
         assert r.energy_j == pytest.approx(
             r.power_trace.energy_j(t0=t_end - r.wall_s, t1=t_end), rel=1e-9)
         assert r.gflops_per_w > 0
+
+
+# -- the online simulator and the executed replay on the card
+
+def test_executed_runtime_on_the_card_matches_the_cpu(cuda):
+    """mamba2-370m cut to 2 layers at full width (bf16, the serve
+    path's dtype) through ``ExecutedGroupRuntime``: kernels on the card,
+    plain versions on the CPU, the same weights and prompt stream.  Seed
+    37's narrowest greedy choice at batch 1, prompt 300, is a top-2
+    logit gap of 4 bf16 ulps (chip_smoke.py phase 11), so both pick the
+    same tokens."""
+    import copy
+    import dataclasses
+    from repro_torch.config import full_config
+    from repro_torch.models import init_params
+    from repro_torch.serve import ExecutedGroupRuntime
+    cfg = dataclasses.replace(full_config("mamba2-370m"), n_layers=2)
+    cpu = init_params(cfg, torch.Generator().manual_seed(37), "cpu")
+    card = copy.deepcopy(cpu).to(cuda)
+    a = ExecutedGroupRuntime(cfg=cfg, params=cpu, seed=37, device="cpu")
+    b = ExecutedGroupRuntime(cfg=cfg, params=card, seed=37, device=cuda)
+    before = (RMK.LAUNCHES["rmsnorm"], SSK.LAUNCHES["ssd_chunk"])
+    got, want = b.run_group(300, 9, 1), a.run_group(300, 9, 1)
+    assert np.array_equal(got, want)
+    assert got.shape == (1, 9) and np.all(got < cfg.vocab_size)
+    L = cfg.n_layers
+    assert RMK.LAUNCHES["rmsnorm"] == before[0] + (2 * L + 1) * 10
+    assert SSK.LAUNCHES["ssd_chunk"] == before[1] + L * 2     # 300 = 256 + 44
+
+
+def test_executed_simulation_on_the_card_keeps_the_trace(cuda):
+    """``simulate(..., execute=True)`` runs HPL (B3) and the LQCD solve
+    (B1, B2) on the card after the event loop, with a failure that kills
+    an HPL attempt: its placements, stats and trace equal
+    ``execute=False``'s, every completed uid has a result, and the
+    kernels launch as the results' steps and iterations imply."""
+    import dataclasses
+    from repro_torch.cluster import (CheckpointPolicy, ClusterTopology,
+                                     HPLWorkload, LQCDSolveWorkload,
+                                     simulate)
+    from repro_torch.configs.hpl import HPLConfig
+    from repro_torch.distributed.fault import WeibullFailureModel
+    hc = HPLConfig(n=512, block=64)
+
+    def arrivals():
+        return [(0.0, HPLWorkload(cfg=hc)),
+                (60.0, LQCDSolveWorkload(lattice=TL.SMOKE_LATTICE)),
+                (120.0, LQCDSolveWorkload(name="lqcd2", seed=1,
+                                          lattice=TL.SMOKE_LATTICE)),
+                (300.0, HPLWorkload(name="hpl2", cfg=hc))]
+
+    kw = dict(topology=ClusterTopology(n_nodes=2), dt_s=30.0,
+              failure_model=WeibullFailureModel(mtbf_s=1000.0, shape=1.0,
+                                                repair_s=300.0),
+              seed=3, checkpoint=CheckpointPolicy())
+    plain = simulate(arrivals(), **kw)
+    before = (dict(K.LAUNCHES), G.LAUNCHES["dgemm"])
+    ex = simulate(arrivals(), execute=True, **kw)
+    assert ex.stats.requeues >= 1 and not plain.results
+    assert [(p.job.name, p.start, p.end, tuple(p.chips))
+            for p in ex.schedule.placements] == \
+        [(p.job.name, p.start, p.end, tuple(p.chips))
+         for p in plain.schedule.placements]
+    assert dataclasses.asdict(ex.stats) == dataclasses.asdict(plain.stats)
+    assert np.array_equal(ex.trace.t, plain.trace.t)
+    for k in plain.trace.components:
+        assert np.array_equal(ex.trace.components[k],
+                              plain.trace.components[k])
+    done = [r.uid for r in ex.records if r.state == "completed"]
+    assert sorted(ex.results) == done == [0, 1, 2, 3]
+    eo = full = gemm = 0
+    for r in ex.results.values():
+        if r.kind == "hpl":
+            assert r.details["passed"]
+            steps = hc.n // hc.block
+            gemm += (steps - 1) + (steps - 2)
+        else:
+            assert r.details["converged"]
+            eo += 4 * r.details["iters"] + 4 * r.details["outer_iters"] + 2
+            full += 1
+    assert K.LAUNCHES["dslash_eo_split"] == before[0]["dslash_eo_split"] + eo
+    assert K.LAUNCHES["dslash_split"] == before[0]["dslash_split"] + full
+    assert G.LAUNCHES["dgemm"] == before[1] + gemm
