@@ -340,7 +340,7 @@ class ArchEntry:
 ARCH_REGISTRY: Dict[str, ArchEntry] = {}
 
 # every architecture the JAX package registers, each with its config
-# module; the port's models run the ssm family only (ROADMAP A6)
+# module; the port's models serve every one of them
 ARCH_IDS: List[str] = [
     "whisper-small",
     "grok-1-314b",

@@ -8,8 +8,9 @@ back.  Layouts are the JAX package's:
   U:   (4, X, Y, Z, T, 3, 3) complex64
   HPL: a (n, n) float32; an LU factorization as its packed ``lu`` (n, n)
        float32 and ``piv`` (n // nb, nb) int32
-  LM:  the ``init_params`` tree (nested dicts, layers stacked on a
-       leading axis) and the decode cache dict, as float32 numpy arrays
+  LM:  the ``init_params`` tree of any family (nested dicts, layers
+       stacked on a leading axis) and the decode cache dict, as float32
+       numpy arrays (an int8 K/V cache as int8)
 """
 from __future__ import annotations
 
@@ -78,11 +79,13 @@ def to_numpy(t: torch.Tensor) -> np.ndarray:
 def _load(module: torch.nn.Module, tree: dict, what: str,
           index: int | None = None) -> None:
     """Copy ``tree``'s arrays (layer ``index`` of stacked ones) into the
-    parameters of the same names, cast to each parameter's dtype."""
+    parameters of the same names, and its sub-dicts into the submodules of
+    the same names, each array cast to its parameter's dtype."""
     names = dict(module.named_parameters(recurse=False))
-    if set(tree) != set(names):
+    children = dict(module.named_children())
+    if set(tree) != set(names) | set(children):
         raise ValueError(f"{what}: the tree has {sorted(tree)}, the port's "
-                         f"module {sorted(names)}")
+                         f"module {sorted(set(names) | set(children))}")
     for k, p in names.items():
         a = np.asarray(tree[k])
         if a.dtype != np.float32:
@@ -94,37 +97,57 @@ def _load(module: torch.nn.Module, tree: dict, what: str,
                              f"got {a.shape}")
         with torch.no_grad():
             p.copy_(torch.from_numpy(np.array(a, order="C")))
+    for k, child in children.items():
+        _load(child, tree[k], f"{what}.{k}", index)
 
 
 def params_from_numpy(tree: dict, cfg: ModelConfig, device="cuda") -> Model:
-    """The JAX package's ``init_params(cfg, key)`` tree as the port's model.
+    """The JAX package's ``init_params(cfg, key)`` tree, for any family, as
+    the port's model.
 
     The arrays must be float32 (``np.asarray(a, np.float32)``): each is
     cast to its parameter's dtype on the way in, so bfloat16 weights come
-    back bit for bit.  Layers, stacked on a leading axis in the tree, are
-    unstacked."""
+    back bit for bit.  Layers (``layers``, ``enc_layers``), stacked on a
+    leading axis in the tree, are unstacked."""
     model = empty_params(cfg, device)
-    _load(model.embed, tree["embed"], "embed")
-    for i, layer in enumerate(model.layers):
-        _load(layer.norm1, tree["layers"]["norm1"], "layers.norm1", i)
-        _load(layer.ssm, tree["layers"]["ssm"], "layers.ssm", i)
-    _load(model.final_norm, tree["final_norm"], "final_norm")
-    _load(model.lm_head, tree.get("lm_head", {}), "lm_head")
+    children = dict(model.named_children())
+    if set(tree) != set(children):
+        raise ValueError(f"the tree has {sorted(tree)}, the port's model "
+                         f"{sorted(children)}")
+    for name, child in children.items():
+        if isinstance(child, torch.nn.ModuleList):
+            for i, layer in enumerate(child):
+                _load(layer, tree[name], name, i)
+        else:
+            _load(child, tree[name], name)
     return model
 
 
+# the decode cache's entries: those kept in float32, and those in the
+# model's dtype unless they arrive as int8 (the int8 K/V cache)
+_F32_CACHE_KEYS = ("ssm", "k_s", "v_s")
+_CACHE_KEYS = ("k", "v", "ckv", "krope", "xk", "xv", "conv") \
+    + _F32_CACHE_KEYS
+
+
 def cache_from_numpy(cache: dict, cfg: ModelConfig, device="cuda") -> dict:
-    """The JAX package's ssm decode cache (``ssm`` (L, B, H, P, N),
-    ``conv`` (L, B, K-1, C), ``pos``) as the port's: ``ssm`` float32,
-    ``conv`` in the model's dtype, ``pos`` an int32 scalar."""
+    """The JAX package's decode cache, for any family, as the port's:
+    ``pos`` an int32 scalar, ``ssm``, ``k_s`` and ``v_s`` float32, ``k``
+    and ``v`` int8 where the cache has scales (the int8 K/V cache), the
+    rest in the model's dtype.  Pass the arrays as float32 (int8 ones may
+    come as int8)."""
     dev = resolve_device(device)
-    if set(cache) != {"pos", "ssm", "conv"}:
-        raise ValueError(f"an ssm decode cache has pos, ssm and conv, got "
-                         f"{sorted(cache)}")
-    return {
-        "pos": torch.tensor(int(np.asarray(cache["pos"])), dtype=torch.int32,
-                            device=dev),
-        "ssm": torch.from_numpy(np.array(cache["ssm"], np.float32)).to(dev),
-        "conv": torch.from_numpy(np.array(cache["conv"], np.float32)).to(
-            dev, param_dtype(cfg)),
-    }
+    unknown = set(cache) - {"pos", *_CACHE_KEYS}
+    if "pos" not in cache or unknown:
+        raise ValueError(f"a decode cache has pos and some of "
+                         f"{list(_CACHE_KEYS)}, got {sorted(cache)}")
+    int8 = ("k", "v") if "k_s" in cache else ()
+    out = {"pos": torch.tensor(int(np.asarray(cache["pos"])),
+                               dtype=torch.int32, device=dev)}
+    for k, a in cache.items():
+        if k == "pos":
+            continue
+        t = torch.from_numpy(np.array(a, np.float32, order="C")).to(dev)
+        out[k] = (t if k in _F32_CACHE_KEYS else
+                  t.to(torch.int8 if k in int8 else param_dtype(cfg)))
+    return out

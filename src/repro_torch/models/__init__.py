@@ -1,4 +1,5 @@
-"""Model substrate of the port: the mamba2 (ssm) family."""
+"""Model substrate of the port: every family's serve path (the train loss
+comes with the train step, ROADMAP A6)."""
 from repro_torch.models.transformer import (  # noqa: F401
     init_params,
     forward_prefill,

@@ -1,17 +1,19 @@
-"""Shared layers: norms, token embeddings and the LM head.
+"""Shared layers: norms, token embeddings, the LM head, RoPE and the MLP
+variants.
 
 Counterpart of the JAX package's ``repro/models/layers.py``.  Parameters
 live in ``nn.Module``s whose attribute names are the JAX dict keys
-(``scale``, ``bias``, ``tokens``, ``w``); the functions that use them are
-plain functions on tensors.  RMSNorm runs the hand-written kernel on a
-card (``kernels/rmsnorm``).  RoPE and the MLP variants come with the
-attention and MLP families (ROADMAP A6).
+(``scale``, ``bias``, ``tokens``, ``w``, ``w_gate``, ``w_up``,
+``w_down``); the functions that use them are plain functions on tensors.
+RMSNorm runs the hand-written kernel on a card (``kernels/rmsnorm``);
+RoPE and the MLPs are plain PyTorch, as the reference's are plain jnp.
 """
 from __future__ import annotations
 
 import math
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.config import ModelConfig
@@ -131,3 +133,77 @@ def lm_head_logits(cfg: ModelConfig, embed_p: Embedding, head_p: LMHead,
                              torch.tensor(-1e30, dtype=logits.dtype,
                                           device=logits.device))
     return logits
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+def rope_freqs(d_head: int, theta: float, device=None) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, d_head, 2, dtype=torch.float32,
+                                         device=device) / d_head))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: (..., S, d_head); positions: (S,) or broadcastable to
+    x[..., :, 0].  Rotates the two halves of the head in float32 and
+    returns x's dtype."""
+    inv = rope_freqs(x.shape[-1], theta, x.device)         # (d_head/2,)
+    ang = positions[..., :, None].float() * inv              # (..., S, d/2)
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# MLP variants
+# ---------------------------------------------------------------------------
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu``'s default, the tanh approximation."""
+    return F.gelu(x, approximate="tanh")
+
+
+class MLP(nn.Module):
+    """``w_gate``, ``w_up`` (d, f) and ``w_down`` (f, d) for swiglu and
+    geglu; ``w_up`` and ``w_down`` for relu2 and gelu."""
+
+    def __init__(self, cfg: ModelConfig, device="cuda",
+                 d_ff: int | None = None):
+        super().__init__()
+        d, f, dt = cfg.d_model, d_ff or cfg.d_ff, param_dtype(cfg)
+
+        def empty(*shape):
+            return frozen(torch.empty(shape, dtype=dt, device=device))
+
+        if cfg.mlp_variant in ("swiglu", "geglu"):
+            self.w_gate = empty(d, f)
+        self.w_up = empty(d, f)
+        self.w_down = empty(f, d)
+
+
+def init_mlp(cfg: ModelConfig, generator: torch.Generator | None,
+             device="cuda", d_ff: int | None = None) -> MLP:
+    p = MLP(cfg, device, d_ff)
+    s_in, s_out = 0.02, 0.02 / math.sqrt(2.0 * cfg.n_layers)
+    for name, t in p.named_parameters():
+        t.copy_(normal(t.shape, s_out if name == "w_down" else s_in,
+                       t.dtype, device, generator))
+    return p
+
+
+def apply_mlp(cfg: ModelConfig, p: MLP, x: torch.Tensor) -> torch.Tensor:
+    if cfg.mlp_variant in ("swiglu", "geglu"):
+        gate = torch.matmul(x, p.w_gate)
+        up = torch.matmul(x, p.w_up)
+        act = F.silu(gate) if cfg.mlp_variant == "swiglu" else gelu(gate)
+        h = act * up
+    else:
+        h = torch.matmul(x, p.w_up)
+        if cfg.mlp_variant == "relu2":
+            h = torch.square(F.relu(h))
+        else:  # gelu
+            h = gelu(h)
+    return torch.matmul(h, p.w_down)

@@ -17,8 +17,8 @@ plain versions.  Timing and energy on the records stay analytic
 executed.  Each group's measured wall times are kept on
 :attr:`ExecutedGroupRuntime.groups`, beside what the engine billed.
 
-The model families the port runs are the ssm family's (ROADMAP A6 adds
-the others); prompts are synthesized uniformly at random per group from
+Token-only families (dense, moe, ssm, hybrid), with an int8 KV cache on
+``kv_int8``; prompts are synthesized uniformly at random per group from
 ``np.random.default_rng(seed)``, as in the JAX package.
 """
 from __future__ import annotations
@@ -58,15 +58,13 @@ class ExecutedGroupRuntime:
             raise ValueError(
                 f"ExecutedGroupRuntime supports token-only families; "
                 f"{arch!r} is {self.cfg.family!r}")
-        if kv_int8:
-            raise NotImplementedError(
-                "kv_int8 quantizes an attention KV cache, which the port "
-                "does not have yet: ROADMAP A6 (attention families)")
+        self.kv_int8 = kv_int8
         self.device = resolve_device(device)
         self.params = params if params is not None else init_params(
             self.cfg, torch.Generator(self.device).manual_seed(seed),
             self.device)
-        self._prefill = make_prefill_step(self.cfg)
+        self._prefill = make_prefill_step(self.cfg,
+                                          quantize_kv_cache=kv_int8)
         self._decode = make_decode_step(self.cfg)
         self._rng = np.random.default_rng(seed)
         #: one ``(prompt_len, n, gen_len, prefill_s, decode_s)`` per group:
@@ -90,7 +88,8 @@ class ExecutedGroupRuntime:
         self._sync()
         t0 = time.perf_counter()
         logits, cache = self._prefill(self.params, {"tokens": tokens})
-        cache = grow_decode_cache(cfg, cache, n, prompt_len + gen_len)
+        cache = grow_decode_cache(cfg, cache, n, prompt_len + gen_len,
+                                  quantize_kv_cache=self.kv_int8)
         self._sync()
         t1 = time.perf_counter()
         out = []

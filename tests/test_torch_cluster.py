@@ -295,7 +295,8 @@ def test_registry_holds_the_ported_adapters():
 def test_unported_kinds_raise(kind, kw):
     """The JAX package's analytic kinds build in the port (``serve_replay``
     on first use); priced at the reference's TPU constants their jobs
-    equal its jobs.  Only their model runs still raise (ROADMAP A6)."""
+    equal its jobs.  None raises: the name is older than the port of the
+    models they price."""
     from test_torch_analytic import TPU_TABLE
     a = TCl.make_workload(kind, chip=TPU_TABLE, **kw).job()
     b = JCl.make_workload(kind, **kw).job()

@@ -1,5 +1,5 @@
-"""The port's CUDA kernels, its solve, its LU and its mamba2 serve path on
-the card.  Every test here is marked ``gpu`` and skips without a CUDA
+"""The port's CUDA kernels, its solve, its LU and its serve path (mamba2
+and a smoke model of every other family) on the card.  Every test here is marked ``gpu`` and skips without a CUDA
 device; none imports JAX, so the file runs on a machine that has only
 PyTorch:
 
@@ -590,6 +590,32 @@ def test_rmsnorm_kernel_at_the_path_shapes(cuda, rows, d, dtype, variant):
     assert torch.equal(RMK.rmsnorm(x, w), got)
 
 
+# the attention families' serve shapes: llama3-8b (batch 4, prompt 2048:
+# prefill and decode), hymba-1.5b (1 x 3072: norm1 and its f32 gated norm
+# over d_inner 3200), deepseek-v2-236b (4 x 512: d_model, q_norm over
+# 1536, kv_norm over 512 on a view whose rows are 576 wide)
+@pytest.mark.parametrize("rows,d,dtype,w_dtype,row_stride", [
+    (8192, 4096, torch.bfloat16, torch.bfloat16, 4096),
+    (4, 4096, torch.bfloat16, torch.bfloat16, 4096),
+    (3072, 1600, torch.bfloat16, torch.bfloat16, 1600),
+    (1, 1600, torch.bfloat16, torch.bfloat16, 1600),
+    (3072, 3200, torch.float32, torch.bfloat16, 3200),
+    (1, 3200, torch.float32, torch.bfloat16, 3200),
+    (2048, 5120, torch.bfloat16, torch.bfloat16, 5120),
+    (2048, 1536, torch.bfloat16, torch.bfloat16, 1536),
+    (2048, 512, torch.bfloat16, torch.bfloat16, 576),
+    (4, 512, torch.bfloat16, torch.bfloat16, 576)])
+def test_rmsnorm_kernel_at_the_attention_path_shapes(cuda, rows, d, dtype,
+                                                     w_dtype, row_stride):
+    x, w = _rms_case(rows, row_stride, dtype, w_dtype, cuda)
+    x, w = x[:, :d], w[:d].contiguous()
+    got = RMK.rmsnorm(x, w)
+    tol = RMS_TOL[dtype]
+    torch.testing.assert_close(got.float(), rmref.rmsnorm_ref(x, w).float(),
+                               rtol=tol, atol=tol)
+    assert torch.equal(RMK.rmsnorm(x, w), got)
+
+
 # the SSD-chunk kernel: test_ssd_chunk_sweep's shapes at its 1e-4, the
 # smoke model's chunk, ragged chunks and P, N off the tiles; x, B, C in
 # float32 and bfloat16
@@ -643,6 +669,17 @@ def test_ssd_chunk_kernel_on_a_full_chunk(cuda, B, Q, H, P, N, dtype,
     themselves off an f64 evaluation by up to ~1e-5 of max|y|, so the
     absolute tolerance scales with max|y| (chip_smoke.py's path check)."""
     args = _ssd_inputs(B, Q, H, P, N, dtype, cuda, strided)
+    for got, want in zip(SSK.ssd_chunk(*args), ssref.ssd_chunk_ref(*args)):
+        torch.testing.assert_close(got, want, rtol=1e-4,
+                                   atol=1e-5 * float(want.abs().max()))
+
+
+@pytest.mark.parametrize("strided", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_chunk_kernel_at_hymbas_chunk(cuda, dtype, strided):
+    """hymba-1.5b's chunk: H = 50 heads of P = 64, N = 16, Q = 256 (the
+    serve path's bf16 views, and f32)."""
+    args = _ssd_inputs(1, 256, 50, 64, 16, dtype, cuda, strided)
     for got, want in zip(SSK.ssd_chunk(*args), ssref.ssd_chunk_ref(*args)):
         torch.testing.assert_close(got, want, rtol=1e-4,
                                    atol=1e-5 * float(want.abs().max()))
@@ -710,6 +747,62 @@ def test_mamba2_serve_on_the_card_matches_the_cpu(cuda, dtype):
         lc, cc = decode(cpu, tok, cc)
         lg, cg = decode(card, tok.to(cuda), cg)
     assert int(cg["pos"]) == 45 + 4
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", ["llama3-8b", "deepseek-v2-236b",
+                                  "grok-1-314b", "hymba-1.5b",
+                                  "whisper-small", "llava-next-mistral-7b"])
+def test_family_serve_on_the_card_matches_the_cpu(cuda, arch, dtype):
+    """One smoke model of each family: prefill (past hymba's window, and
+    with an int8 cache where there is a K/V cache) and 4 decode steps,
+    kernels on the card against plain versions on the CPU, same weights;
+    B4 and B5 launch as the model's structure says (chip_smoke.py's
+    count, at the repository's root)."""
+    import copy
+    import dataclasses
+
+    from chip_smoke import rmsnorms_per_forward, ssd_chunks_per_prefill
+    from repro_torch.config import smoke_config
+    from repro_torch.models import init_params
+    from repro_torch.models.frontend import enc_len_for
+    from repro_torch.runtime import steps
+    cfg = dataclasses.replace(smoke_config(arch), dtype=dtype)
+    cpu = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    card = copy.deepcopy(cpu).to(cuda)
+    rng = np.random.default_rng(0)
+    B, S = 2, 45
+    batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                                     (B, S)))}
+    if cfg.family == "vlm":
+        batch["patch_embeds"] = torch.from_numpy(rng.standard_normal(
+            (B, cfg.n_patches, cfg.d_model))).to(getattr(torch, dtype))
+    if cfg.family == "encdec":
+        batch["frame_embeds"] = torch.from_numpy(rng.standard_normal(
+            (B, enc_len_for(cfg, S), cfg.d_model))).to(getattr(torch, dtype))
+    on_card = {k: v.to(cuda) for k, v in batch.items()}
+    tol = dict(rtol=1e-4, atol=1e-4) if dtype == "float32" else \
+        dict(rtol=2e-2, atol=2e-2)
+    total = S + 4 + (cfg.n_patches if cfg.family == "vlm" else 0)
+    for q in (False, True):
+        prefill = steps.make_prefill_step(cfg, quantize_kv_cache=q)
+        decode = steps.make_decode_step(cfg)
+        before = (RMK.LAUNCHES["rmsnorm"], SSK.LAUNCHES["ssd_chunk"])
+        lc, cc = prefill(cpu, batch)
+        lg, cg = prefill(card, on_card)
+        assert RMK.LAUNCHES["rmsnorm"] == before[0] + \
+            rmsnorms_per_forward(cfg)
+        assert SSK.LAUNCHES["ssd_chunk"] == before[1] + \
+            ssd_chunks_per_prefill(cfg, S)
+        cc = steps.grow_decode_cache(cfg, cc, B, total, quantize_kv_cache=q)
+        cg = steps.grow_decode_cache(cfg, cg, B, total, quantize_kv_cache=q)
+        for _ in range(4):
+            torch.testing.assert_close(lg.cpu().float(), lc.float(), **tol)
+            tok = torch.argmax(lc[:, :cfg.vocab_size], -1)[:, None]
+            lc, cc = decode(cpu, tok, cc)
+            lg, cg = decode(card, tok.to(cuda), cg)
+        torch.testing.assert_close(lg.cpu().float(), lc.float(), **tol)
+        assert int(cg["pos"]) == total
 
 
 # -- the energy path: the calibration and the Workload adapters on the card

@@ -74,18 +74,20 @@ def test_configs_are_copies():
 
 
 def test_other_architectures_raise():
-    """Every architecture's configuration is there; the models of the
-    families other than ssm raise (ROADMAP A6)."""
+    """Every architecture's configuration is there and equal to the JAX
+    package's, and the model of every family initialises (the attention,
+    MLP and MoE families run since they were ported; their parity is in
+    tests/test_torch_families.py); an unknown architecture raises."""
     llama = TCF.get_arch("llama3-8b").smoke()
     assert dataclasses.asdict(llama) == dataclasses.asdict(
         __import__("repro.config").config.get_arch("llama3-8b").smoke())
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        TM.init_params(llama, device="cpu")
+    for arch in TCF.ARCH_IDS:
+        cfg = TCF.smoke_config(arch)
+        model = TM.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+        assert len(model.layers) == cfg.n_layers
+        assert hasattr(model.layers[0], "attn") == (cfg.family != "ssm")
     with pytest.raises(KeyError):
         TCF.get_arch("no-such-model")
-    dense = dataclasses.replace(TCF.smoke_config(ARCH), family="dense")
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        TM.init_params(dense, device="cpu")
 
 
 def test_weights_carry_over_bit_for_bit(models):
@@ -280,27 +282,33 @@ def test_serve_cli_on_the_cpu(capsys):
     serve.main(["--arch", ARCH, "--device", "cpu", "--batch", "2",
                 "--prompt-len", "40", "--gen", "3"])
     out = capsys.readouterr().out.splitlines()
-    assert out[0].startswith("prefill 40 tokens x 2:")
-    assert out[1].startswith("decoded 3 tokens x 2 in")
-    assert out[2].startswith("sample: [") and "energy" not in "".join(out)
+    assert out[0].startswith("[energy] decode dominant=")
+    assert out[1].startswith("prefill 40 tokens x 2:")
+    assert out[2].startswith("decoded 3 tokens x 2 in")
+    assert all(line.startswith("[energy] ") for line in out[3:6])
+    assert out[6].startswith("sample: [")
 
 
-@pytest.mark.parametrize("flag, match", [
-    (["--kv-int8"], "A6"), (["--replay", "{trace}", "--executed",
-                             "--kv-int8"], "A6"),
-    (["--replay", "{trace}", "--executed", "--arch", "olmo-1b"], "A6"),
-    (["--arch", "olmo-1b"], "A6")])
-def test_serve_cli_refuses_what_is_not_ported(flag, match, tmp_path):
-    """The model runs of a family other than ssm, and ``--kv-int8`` on a
-    model run, raise; the analytic replay of the same trace runs."""
+@pytest.mark.parametrize("flag, first", [
+    (["--kv-int8"], "[energy]"),
+    (["--replay", "{trace}", "--executed", "--kv-int8"], "[replay]"),
+    (["--replay", "{trace}", "--executed", "--arch", "olmo-1b"], "[replay]"),
+    (["--arch", "olmo-1b"], "[energy]")])
+def test_serve_cli_refuses_what_is_not_ported(flag, first, tmp_path, capsys):
+    """What the CLI refused before the attention families were ported now
+    runs: the model runs of another family and ``--kv-int8``, plain and
+    through the executed replay; an unknown architecture is refused."""
     trace = tmp_path / "x.npz"
-    serve.main(["--make-demo-trace", str(trace), "--arch", "olmo-1b"])
+    serve.main(["--make-demo-trace", str(trace), "--arch", "olmo-1b",
+                "--batch", "2", "--prompt-len", "12", "--gen", "3"])
+    capsys.readouterr()
     flag = [f.format(trace=trace) for f in flag]
-    with pytest.raises(NotImplementedError, match=match):
-        serve.main(["--device", "cpu", *flag])
-    if "--replay" in flag:
-        flag.remove("--executed")
-        serve.main(["--device", "cpu", *flag])
+    serve.main(["--device", "cpu", "--batch", "2", "--prompt-len", "12",
+                "--gen", "3", *flag])
+    out = capsys.readouterr().out
+    assert out.startswith(first) and "sample: [" in out
+    with pytest.raises(SystemExit):
+        serve.main(["--device", "cpu", "--arch", "no-such-model"])
 
 
 def test_default_device_needs_a_card(monkeypatch):

@@ -487,12 +487,17 @@ def test_executed_runtime_takes_a_cut_config():
 
 
 def test_executed_runtime_refusals(monkeypatch):
+    """The vlm and encdec families are refused, as in the reference, and
+    so is the default card without one; llama3-8b and the int8 cache,
+    refused before the attention families were ported, now run."""
     with pytest.raises(ValueError, match="token-only"):
         TS.ExecutedGroupRuntime("llava-next-mistral-7b", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        TS.ExecutedGroupRuntime("llama3-8b", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        TS.ExecutedGroupRuntime(ARCH, kv_int8=True, device="cpu")
+    for arch, kv_int8 in (("llama3-8b", False), ("llama3-8b", True),
+                          (ARCH, True)):
+        rt = TS.ExecutedGroupRuntime(arch, kv_int8=kv_int8, device="cpu")
+        toks = rt.run_group(9, 3, 2)
+        assert toks.shape == (2, 3) and toks.dtype == np.int32
+        assert ((0 <= toks) & (toks < rt.cfg.vocab_size)).all()
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         TS.ExecutedGroupRuntime(ARCH)
