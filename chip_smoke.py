@@ -132,7 +132,32 @@ Phases (one line each, or a few):
      says; every architecture's smoke config on the CPU and the card
      (bf16 logits within 2e-2, f32 greedy tokens equal); (e) B4 at the
      new path shapes (llama3-8b's, hymba's) cold and warm beside
-     ``F.rms_norm`` and B5 at hymba's chunk, beside their bounds.
+     ``F.rms_norm`` and B5 at hymba's chunk, beside their bounds;
+ 18. the train step (``make_train_step``; B4 and B5 forward through
+     their autograd.Functions, whose backward is autograd of the plain
+     versions): (a) mamba2-370m at its published widths (48 layers,
+     seeded random weights, bf16, f32 AdamW moments), remat "layer", 2
+     microbatches of 2 x 2048, 6 steps on one synthetic batch: finite
+     losses falling by more than 0.5, B4 and B5 launched exactly 386 and
+     1536 times a step (each layer forward, then again in backward's
+     recompute), the step's wall and tokens/s, peak memory beside
+     ``estimate_train_bytes``; one step profiled (busy share, largest
+     activities, B4's, B5's and the plain backwards' shares); (b) its
+     first 2 layers at full width, 2 x 512, float32 and bfloat16, on the
+     CPU (plain versions) and the card (kernels): gradients within 1e-3
+     / 2e-2 of each leaf's max|g| (the AdamW moments after step 2 too),
+     the losses within 1e-4 / 2e-2, and the parameters after step 2
+     (where lr > 0) within 1e-6 (bf16: one ulp more) of the difference
+     the two devices' moments imply through Adam's step; (c) llama3-8b
+     cut to 2 layers at full width, 2 x 2048, remat "layer" and
+     "block", 6 steps at lr 3e-5: losses
+     within 1e-3 of each other, finite and falling, B4 exact, peak
+     memory beside the estimate; (d) every smoke config's loss,
+     gradients and step on the CPU and the card (f32: the loss within
+     1e-4, each gradient leaf within 1e-3 of its largest value); (e) B4
+     at the train shapes cold and warm beside ``F.rms_norm``, B5 at the
+     microbatch's chunk, and the plain SSD backward, timed beside their
+     bounds.
 Every time is taken by ``repro_torch.kernels.timing``: the calls are
 queued behind a sleep kernel, and a kernel's or a library call's reading
 that the host paced is taken again behind a longer sleep (a plain
@@ -207,6 +232,29 @@ FAMILY_RUNS = [("hymba-1.5b", None, 1, 3072), ("whisper-small", None, 4, 448),
 FAMILY_STEPS = 8
 SMOKE_PROMPT = 45     # the smoke configs' CPU-card runs (past hymba's window)
 RUNTIME_GROUP = (512, 16, 2)    # phase 17d's runtime group: prompt, steps, n
+# phase 18: the train step
+TRAIN_TC = dict(remat="layer", microbatches=2, warmup_steps=1,
+                learning_rate=3e-3)
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 2048, 6
+TRAIN_LOSS_DROP = 0.5     # [18a]: the last loss below the first by this
+TRAIN_CUT = (2, 2, 512)   # [18b]: layers, batch, sequence, CPU vs card
+LLAMA_TRAIN = (2, 2, 2048)  # [18c]: llama3-8b's layers, batch, sequence
+# [18c]'s rate and steps: Adam's first step moves every weight by lr
+# whatever its gradient, so each of the 128256 logits moves by up to lr
+# times sum|h| (~0.8 d, d = 4096): on an H100 its loss went from 12.48
+# to 23.34 at lr 3e-3 and to 13.41 at 3e-4; at 3e-5 the first-order fall
+# outweighs that spread
+LLAMA_TRAIN_LR, LLAMA_TRAIN_STEPS = 3e-5, 6
+TRAIN_SMOKE = (2, 45)     # [18d]: every smoke config's batch, sequence
+# [18b]/[18d] CPU against card: each gradient leaf within this share of
+# its largest |g| (float32: B5's own f32 sums, held at 1e-5 of max|y| a
+# chunk, put mamba2's A_log gradient, a sum over every position, 1.2e-4
+# of its largest value apart on an H100); [18b] the parameters after
+# step 2 within TRAIN_P_TOL (bf16: one ulp more) of what the two
+# devices' AdamW moments imply (compare_train)
+TRAIN_GRAD_TOL = {"float32": 1e-3, "bfloat16": 2e-2}
+TRAIN_LOSS_TOL = {"float32": 1e-4, "bfloat16": 2e-2}   # relative
+TRAIN_P_TOL = 1e-6
 WATT_QUERY = ["nvidia-smi", "--query-gpu=power.draw,clocks.sm",
               "--format=csv,noheader,nounits", "-lms", "100"]
 
@@ -216,10 +264,14 @@ def check(ok: bool, what: str) -> None:
         raise RuntimeError(f"check failed: {what}")
 
 
-def device_activity(fn):
+def device_activity(fn, ops: tuple = ()):
     """Run ``fn()`` under torch.profiler; return its result, the wall
     seconds (host clock, synchronised), the device seconds and count of
-    each device activity by name, and the names in the order they ran."""
+    each device activity by name, and the names in the order they ran.
+    With ``ops`` (names of host-side events, such as an autograd node's
+    ``<Function>Backward``), a sixth item: for each, the device seconds
+    of the work its events launched (children included), their count
+    and the device activities they launched."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -231,12 +283,24 @@ def device_activity(fn):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     busy, count = {}, {}
-    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    events = prof.events()
+    device = [e for e in events if e.device_type == DeviceType.CUDA]
     for e in device:
         busy[e.name] = busy.get(e.name, 0.0) + e.device_time_total / 1e6
         count[e.name] = count.get(e.name, 0) + 1
     order = [e.name for e in sorted(device, key=lambda e: e.time_range.start)]
-    return out, wall, busy, count, order
+    if not ops:
+        return out, wall, busy, count, order
+    def launched(e) -> int:
+        return len(e.kernels) + sum(launched(c) for c in e.cpu_children)
+
+    op_busy = {op: [0.0, 0, 0] for op in ops}
+    for e in events:
+        if e.name in op_busy:
+            op_busy[e.name][0] += e.device_time_total / 1e6
+            op_busy[e.name][1] += 1
+            op_busy[e.name][2] += launched(e)
+    return out, wall, busy, count, order, op_busy
 
 
 def hpl_profile(blocked_lu, a) -> None:
@@ -808,6 +872,468 @@ def phase17(dev, card: str, records: list) -> float:
     t17 = time.perf_counter() - t17
     print(f"[17] phase 17 took {t17:.1f} s ({card})")
     return t17
+
+
+def train_launches(cfg, tc, seq: int) -> dict:
+    """B4 and B5 launches of one train step over ``seq`` positions, from
+    the model's structure and the remat policy: each microbatch runs
+    every decoder layer forward once, and backward runs it again once
+    ("layer") or, under sqrt-remat's nested checkpoints, twice but for
+    the last layer of each block, before which the block's recompute
+    stops ("block": 2 bs - 1 a block of bs layers); the final norm runs
+    once, and the kernels' backward (their plain versions) launches
+    nothing."""
+    from repro_torch.models.transformer import block_size
+    L, bs = cfg.n_layers, block_size(cfg.n_layers)
+    runs = {"none": L, "layer": 2 * L,
+            "block": L + L // bs * (2 * bs - 1)}[tc.remat]
+    final = int(cfg.norm_variant == "rmsnorm")
+    check(cfg.family != "encdec" or not final,
+          "train_launches counts no RMSNorm encoder")
+    per_layer = (rmsnorms_per_forward(cfg) - final) // L
+    M = tc.microbatches
+    return {"rmsnorm": M * (per_layer * runs + final),
+            "ssd_chunk": M * ssd_chunks_per_prefill(cfg, seq) // L * runs}
+
+
+def bf16_ulp(t) -> "torch.Tensor":
+    """The spacing of bfloat16 values at |t| (8 significant bits)."""
+    import torch
+    _, e = torch.frexp(t.float())
+    return torch.ldexp(torch.ones_like(t, dtype=torch.float32), e - 8)
+
+
+def compare_train(cpu: dict, card: dict, dtype: str, tc) -> dict:
+    """CPU against card after the same two steps from the same weights:
+    each gradient leaf (at the initial weights) within TRAIN_GRAD_TOL of
+    its largest |g|, the first moment after step 2 too (the clipped
+    gradients the steps used) and the second within twice that (a
+    square), the losses within TRAIN_LOSS_TOL.  The parameters after
+    step 2 (lr > 0; step 1's is 0): each device moved them by lr (d + wd
+    p0), with d = m_hat / (sqrt(v_hat) + eps) from its own moments, so
+    their CPU-card difference must be lr (d_card - d_cpu) within
+    TRAIN_P_TOL (float32 rounding; bfloat16: one ulp of the parameter
+    more).  Adam normalises each element, so where |g| is near eps a
+    gradient difference far below TRAIN_GRAD_TOL moves a parameter by
+    up to 2 lr: the raw difference and the count of elements whose
+    gradients differ in sign are reported.  Returns the statistics and
+    the failures."""
+    import torch
+    tol = TRAIN_GRAD_TOL[dtype]
+    bc1, bc2 = 1 - tc.beta1 ** 2, 1 - tc.beta2 ** 2
+    lr = cpu["lr"]
+    st = {"grad_share": 0.0, "param_diff": 0.0, "residual": 0.0,
+          "flips": 0, "n": 0}
+    bad = []
+
+    def within(what, k, a, b, share):
+        scale = float(b.abs().max())
+        got = float((a - b).abs().max()) / scale if scale else 0.0
+        if got > share:
+            bad.append(f"{what} {k}: {got:.2e} of its largest value "
+                       f"{scale:.3e} apart")
+        return got
+
+    p_card = dict(card["params"].named_parameters())
+    for k, p in cpu["params"].named_parameters():
+        gc, gg = cpu["grads"][k].double(), card["grads"][k].double().cpu()
+        st["grad_share"] = max(st["grad_share"],
+                               within("gradient", k, gg, gc, tol))
+        st["flips"] += int((gc * gg < 0).sum()
+                           + ((gc == 0) != (gg == 0)).sum())
+        st["n"] += gc.numel()
+        d = {}
+        for w, r in (("cpu", cpu), ("card", card)):
+            m, v = r["m"][k].double().cpu(), r["v"][k].double().cpu()
+            d[w] = (m / bc1) / (torch.sqrt(v / bc2) + tc.eps)
+            if w == "card":
+                within("first moment", k, m, cpu["m"][k].double(), tol)
+                within("second moment", k, v, cpu["v"][k].double(),
+                       2 * tol)
+        a, b = p.detach().double(), p_card[k].detach().double().cpu()
+        want = lr * (d["card"] - d["cpu"])
+        resid = ((a - b) - want).abs()
+        allowed = TRAIN_P_TOL + (bf16_ulp(torch.maximum(a.abs(), b.abs()))
+                                 .double() if dtype == "bfloat16" else 0)
+        if not bool((resid <= allowed).all()):
+            i = int(torch.argmax(resid - allowed))
+            bad.append(f"parameter {k} after step 2: CPU-card difference "
+                       f"{float((a - b).reshape(-1)[i]):.3e} where the "
+                       f"moments imply {float(want.reshape(-1)[i]):.3e}")
+        st["param_diff"] = max(st["param_diff"], float((a - b).abs().max()))
+        st["residual"] = max(st["residual"], float(resid.max()))
+    for i, (a, b) in enumerate(zip(cpu["losses"], card["losses"])):
+        if abs(a - b) > TRAIN_LOSS_TOL[dtype] * abs(a):
+            bad.append(f"loss {i}: {a} (CPU), {b} (card)")
+    return st, bad
+
+
+def phase18(dev, card: str, records: list) -> float:
+    """[18] The train step on the card: (a) mamba2-370m at its published
+    widths, remat "layer", 2 microbatches of 2 x 2048, 6 steps on one
+    batch, B4/B5 launches exact, one step profiled; (b) its 2-layer cut,
+    CPU against card at f32 and bf16; (c) llama3-8b cut to 2 layers at
+    full width, remat "layer" and "block"; (d) every smoke config's step,
+    CPU against card; (e) B4 and B5 at the train shapes, checked and
+    timed, and the plain SSD backward timed.  Returns the phase's
+    seconds."""
+    import copy
+    import dataclasses
+    import statistics
+
+    import torch
+
+    from repro_torch.config import (ARCH_IDS, MeshConfig, ShapeConfig,
+                                    TrainConfig, full_config, smoke_config)
+    from repro_torch.data import SyntheticLMData, make_batch_iterator
+    from repro_torch.kernels.dgemm import kernel as G
+    from repro_torch.kernels.dslash import kernel as K
+    from repro_torch.kernels.rmsnorm import bench as RB
+    from repro_torch.kernels.rmsnorm import kernel as RK
+    from repro_torch.kernels.ssd_chunk import kernel as SK
+    from repro_torch.kernels.ssd_chunk.ref import ssd_chunk_ref
+    from repro_torch.kernels.timing import bound, timed_ms
+    from repro_torch.models import init_params
+    from repro_torch.optim import adamw_init
+    from repro_torch.runtime.memplan import estimate_train_bytes
+    from repro_torch.runtime.steps import loss_and_grads, make_train_step
+
+    t18 = time.perf_counter()
+    torch.cuda.empty_cache()
+    rec = {r["name"]: r for r in records}
+    path = {}         # run -> {kernel: launches}, summed over its calls
+    shapes_by = {}    # run -> {(rows, d, x dtype): B4 launches}
+    one_card = MeshConfig((1, 1), ("data", "model"))
+    bf16, f32 = torch.bfloat16, torch.float32
+
+    def counted(what, fn):
+        """fn() with every kernel's count from 0; returns fn's result and
+        this call's launches, and adds them to the run's."""
+        for mod in (K, G, RK, SK):
+            mod.reset_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        now = {**K.LAUNCHES, **G.LAUNCHES, **RK.LAUNCHES, **SK.LAUNCHES}
+        run = path.setdefault(what, dict.fromkeys(now, 0))
+        for k, v in now.items():
+            run[k] += v
+        shapes = shapes_by.setdefault(what, {})
+        for k, v in RK.SHAPE_LAUNCHES.items():
+            shapes[k] = shapes.get(k, 0) + v
+        return out, now
+
+    def lm_batch(cfg, B, S, where):
+        b = SyntheticLMData(cfg.vocab_size, S, B, seed=SEED).batch(0)
+        return {k: torch.from_numpy(v).to(where) for k, v in b.items()}
+
+    # 18a. mamba2-370m at its published widths
+    cfg = full_config(ARCH)
+    tc = TrainConfig(**TRAIN_TC)
+    want = train_launches(cfg, tc, TRAIN_SEQ)
+    check(want == {"rmsnorm": 386, "ssd_chunk": 1536},
+          "mamba2's step: 2 x (97 + 96) B4, 2 x (384 + 384) B5")
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()      # by the earlier phases
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(dev).manual_seed(SEED), dev)
+    opt = adamw_init(params)
+    batch = lm_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, dev)
+    step = make_train_step(cfg, tc)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    losses, walls, lrs = [], [], []
+    for i in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        (params, opt, m), now = counted(
+            "mamba2_370m", lambda: step(params, opt, batch))
+        walls.append(time.perf_counter() - t0)
+        losses.append(float(m["loss"]))
+        lrs.append(float(m["lr"]))
+        check(now["rmsnorm"] == want["rmsnorm"]
+              and now["ssd_chunk"] == want["ssd_chunk"],
+              f"step {i}: B4 {now['rmsnorm']}, B5 {now['ssd_chunk']} "
+              f"launches, want {want}")
+    peak = torch.cuda.max_memory_allocated() - held
+    shape = ShapeConfig("t", TRAIN_SEQ, TRAIN_BATCH, "train")
+    est = estimate_train_bytes(cfg, shape, one_card, tc)
+    wall = statistics.median(walls[1:])
+    rows = TRAIN_BATCH // tc.microbatches * TRAIN_SEQ
+    n_params = sum(p.numel() for p in params.parameters())
+    print(f"[18a] {cfg.name} train step at full width ({cfg.n_layers} "
+          f"layers, {n_params} parameters, {cfg.dtype}, f32 moments; "
+          f"initialised in {t_init:.2f} s): {TRAIN_BATCH} x {TRAIN_SEQ} "
+          f"tokens a step in {tc.microbatches} microbatches, remat "
+          f"{tc.remat!r}, {TRAIN_STEPS} steps on one batch: losses "
+          f"{[round(v, 4) for v in losses]}, lr {lrs}; step walls "
+          f"{[round(w * 1e3, 1) for w in walls]} ms (median of steps 2-"
+          f"{TRAIN_STEPS} {wall * 1e3:.1f} ms, "
+          f"{TRAIN_BATCH * TRAIN_SEQ / wall:.0f} tokens/s); peak memory "
+          f"{peak / 1e9:.2f} GB allocated beyond the earlier phases' "
+          f"{held / 1e9:.2f} GB, estimate_train_bytes "
+          f"{est / 1e9:.2f} GB (MeshConfig((1, 1))); launches per step "
+          f"B4 {want['rmsnorm']}, B5 {want['ssd_chunk']} ({card})")
+    check(all(math.isfinite(v) for v in losses), "finite losses")
+    check(losses[-1] < losses[0] - TRAIN_LOSS_DROP,
+          f"the loss falls by more than {TRAIN_LOSS_DROP} in "
+          f"{TRAIN_STEPS} steps")
+    check(shapes_by["mamba2_370m"] == {
+        (rows, cfg.d_model, bf16): TRAIN_STEPS * 2 * 97,
+        (rows, cfg.d_inner_ssm, f32): TRAIN_STEPS * 2 * 96},
+        "B4 at (4096, 1024) bf16 and (4096, 2048) f32 as the layers say")
+    prof = device_activity(
+        lambda: step(params, opt, batch),
+        ops=("SSDChunkFunctionBackward", "RMSNormFunctionBackward"))
+    _, pwall, busy, count, _, ops = prof
+    print_activity(f"one {ARCH} train step", pwall, busy, count,
+                   tag="[18a]")
+    total = sum(busy.values())
+    for what, key in (("B5 (SSD chunk, forward)", "ssd_chunk_kernel"),
+                      ("B4 (RMSNorm, forward)", "rmsnorm_kernel")):
+        t = sum(v for k, v in busy.items() if key in k)
+        n = sum(v for k, v in count.items() if key in k)
+        print(f"[18a] {what}: {t * 1e3:.2f} ms in {n} launches, "
+              f"{100 * t / total:.1f}% of the device's busy time")
+    for op, (t, n, acts) in ops.items():
+        print(f"[18a] {op} (the plain version's recompute and backward): "
+              f"{t * 1e3:.2f} ms of device time in {n} calls, "
+              f"{100 * t / total:.1f}% of the busy time; {acts} of the "
+              f"step's {sum(count.values())} device activities")
+    del params, opt, batch, step, m
+    torch.cuda.empty_cache()
+
+    # 18b. the 2-layer cut at full width, CPU (plain) against card
+    Lc, Bc, Sc = TRAIN_CUT
+    tc_b = TrainConfig(remat="layer", warmup_steps=1, learning_rate=3e-3)
+    for dtype in ("float32", "bfloat16"):
+        cut = dataclasses.replace(cfg, n_layers=Lc, dtype=dtype)
+        p_cpu = init_params(cut, torch.Generator().manual_seed(SEED), "cpu")
+        runs = {}
+        t0 = time.perf_counter()
+        for where, p in (("cpu", p_cpu), ("card", copy.deepcopy(p_cpu))):
+            p = p.to("cpu" if where == "cpu" else dev)
+            b = lm_batch(cut, Bc, Sc, p.embed.tokens.device)
+
+            def run():
+                _, _, g = loss_and_grads(cut, tc_b, p.requires_grad_(), b)
+                st, o, ls = make_train_step(cut, tc_b), adamw_init(p), []
+                for _ in range(2):
+                    _, o, mm = st(p, o, b)
+                    ls.append(float(mm["loss"]))
+                return {"grads": g, "losses": ls, "params": p,
+                        "lr": float(mm["lr"]), "m": o["m"], "v": o["v"]}
+
+            runs[where] = (counted(f"mamba2_cut_{dtype}", run)[0]
+                           if where == "card" else run())
+            runs[where + "_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+        res, bad = compare_train(runs["cpu"], runs["card"], dtype, tc_b)
+        one = train_launches(cut, tc_b, Sc)
+        got = path[f"mamba2_cut_{dtype}"]
+        print(f"[18b] {cut.n_layers} layers at full width, {dtype}, "
+              f"{Bc} x {Sc}: losses {runs['cpu']['losses']} (CPU), "
+              f"{runs['card']['losses']} (card); gradients within "
+              f"{res['grad_share']:.2e} of each leaf's max|g| (tolerance "
+              f"{TRAIN_GRAD_TOL[dtype]}); after step 2 (lr "
+              f"{runs['cpu']['lr']:.3g}) the parameters apart by up to "
+              f"{res['param_diff']:.3e}, and by {res['residual']:.3e} at "
+              f"most beyond what the moments imply (tolerance "
+              f"{TRAIN_P_TOL}{' + one ulp' if dtype == 'bfloat16' else ''});"
+              f" {res['flips']} of {res['n']} gradient elements of "
+              f"opposite sign or zero on one side only; "
+              f"{runs['cpu_s']:.1f} s on the CPU, {runs['card_s']:.1f} s on "
+              f"the card; card launches B4 {got['rmsnorm']}, B5 "
+              f"{got['ssd_chunk']} ({card})")
+        for line in bad[:10]:
+            print(f"[18b]   {line}")
+        check(not bad, f"{dtype}: the cut's gradients, losses and "
+              f"parameters agree on CPU and card ({len(bad)} failures)")
+        check(got["rmsnorm"] == 3 * one["rmsnorm"]
+              and got["ssd_chunk"] == 3 * one["ssd_chunk"],
+              "the cut on the card: B4/B5 as its structure says, 3 passes")
+        del runs, p_cpu
+    torch.cuda.empty_cache()
+
+    # 18c. llama3-8b cut to 2 layers at full width: remat layer and block
+    Ll, Bl, Sl = LLAMA_TRAIN
+    lcfg = dataclasses.replace(full_config(LLAMA), n_layers=Ll)
+    lshape = ShapeConfig("t", Sl, Bl, "train")
+    llama = {}
+    for policy in ("layer", "block"):
+        tcl = TrainConfig(remat=policy, warmup_steps=1,
+                          learning_rate=LLAMA_TRAIN_LR)
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        p = init_params(lcfg, torch.Generator(dev).manual_seed(SEED), dev)
+        o = adamw_init(p)
+        lb = lm_batch(lcfg, Bl, Sl, dev)
+        st = make_train_step(lcfg, tcl)
+        one = train_launches(lcfg, tcl, Sl)
+        ls, ws = [], []
+        for i in range(LLAMA_TRAIN_STEPS):
+            t0 = time.perf_counter()
+            (p, o, mm), now = counted(f"llama3_8b_cut_{policy}",
+                                      lambda: st(p, o, lb))
+            ws.append(time.perf_counter() - t0)
+            ls.append(float(mm["loss"]))
+            check(now["rmsnorm"] == one["rmsnorm"]
+                  and now["ssd_chunk"] == 0,
+                  f"llama3-8b cut, {policy}: B4 {now['rmsnorm']} a step, "
+                  f"want {one['rmsnorm']}")
+        peak = torch.cuda.max_memory_allocated() - held
+        est = estimate_train_bytes(lcfg, lshape, one_card, tcl)
+        n_params = sum(t.numel() for t in p.parameters())
+        llama[policy] = ls
+        print(f"[18c] {LLAMA} cut to {Ll} layers at full width ({n_params} "
+              f"parameters: {2 * n_params / 1e9:.2f} GB bf16, "
+              f"{8 * n_params / 1e9:.2f} GB f32 moments), {Bl} x {Sl}, "
+              f"remat {policy!r}: losses {[round(v, 5) for v in ls]}, step "
+              f"walls {[round(w * 1e3, 1) for w in ws]} ms; peak "
+              f"{peak / 1e9:.2f} GB allocated beyond the "
+              f"{held / 1e9:.2f} GB held before, estimate_train_bytes "
+              f"{est / 1e9:.2f} GB; B4 {one['rmsnorm']} a step ({card})")
+        check(all(math.isfinite(v) for v in ls) and ls[-1] < ls[0],
+              f"llama3-8b cut, {policy}: finite losses, falling once the "
+              f"rate is above 0")
+        del p, o, st, mm
+        torch.cuda.empty_cache()
+    d = max(abs(a - b) for a, b in zip(llama["layer"], llama["block"]))
+    print(f"[18c] remat 'layer' against 'block': losses within {d:.2e}")
+    check(d < 1e-3, "remat 'layer' and 'block' give the same losses "
+          "(within 1e-3, the reference's criterion)")
+
+    # 18d. every architecture's smoke config, one step, CPU against card
+    Bs, Ss = TRAIN_SMOKE
+    tc_d = TrainConfig(warmup_steps=1, learning_rate=3e-3)
+    for arch in ARCH_IDS:
+        scfg = dataclasses.replace(smoke_config(arch), dtype="float32")
+        seq = Ss + (scfg.n_patches if scfg.family == "vlm" else 0)
+        nb = next(make_batch_iterator(scfg, ShapeConfig("t", seq, Bs,
+                                                        "train"), seed=SEED))
+        sp = init_params(scfg, torch.Generator().manual_seed(SEED), "cpu")
+        runs = {}
+        for where, p in (("cpu", sp), ("card", copy.deepcopy(sp))):
+            p = p.to("cpu" if where == "cpu" else dev)
+            b = {k: torch.from_numpy(v).to(p.embed.tokens.device)
+                 for k, v in nb.items()}
+
+            def run():
+                loss, _, g = loss_and_grads(scfg, tc_d, p.requires_grad_(), b)
+                _, _, mm = make_train_step(scfg, tc_d)(p, adamw_init(p), b)
+                return {"grads": g, "losses": [float(loss)],
+                        "grad_norm": float(mm["grad_norm"]), "params": p}
+
+            runs[where] = (counted(f"smoke_{arch}", run)[0]
+                           if where == "card" else run())
+        worst = 0.0
+        for k, gc in runs["cpu"]["grads"].items():
+            gg = runs["card"]["grads"][k].cpu()
+            scale = float(gc.abs().max())
+            share = float((gg - gc).abs().max()) / scale if scale else 0.0
+            worst = max(worst, share)
+            check(share <= TRAIN_GRAD_TOL["float32"],
+                  f"{arch} smoke: gradient {k} {share:.2e} of max|g| apart")
+        lc, lg = runs["cpu"]["losses"][0], runs["card"]["losses"][0]
+        check(abs(lc - lg) <= TRAIN_LOSS_TOL["float32"] * abs(lc)
+              and abs(runs["cpu"]["grad_norm"] - runs["card"]["grad_norm"])
+              <= TRAIN_LOSS_TOL["float32"] * runs["cpu"]["grad_norm"],
+              f"{arch} smoke: loss and grad norm on CPU and card")
+        one = train_launches(scfg, tc_d, seq)
+        got = path[f"smoke_{arch}"]
+        check(got["rmsnorm"] == 2 * one["rmsnorm"]
+              and got["ssd_chunk"] == 2 * one["ssd_chunk"],
+              f"{arch} smoke: B4/B5 launched as its structure says")
+        print(f"[18d] {arch} smoke (f32, {Bs} x {seq}), CPU vs card: loss "
+              f"{lc:.6f} / {lg:.6f}, gradients within {worst:.2e} of each "
+              f"leaf's max|g|; card launches B4 {got['rmsnorm']}, B5 "
+              f"{got['ssd_chunk']}")
+        del runs, sp
+
+    # 18e. B4 at the train shapes, B5 at the microbatch's chunk
+    rows_l = Bl * Sl
+    train_shapes = {
+        "train_norm": (rows, cfg.d_model, bf16, bf16, "mamba2_370m"),
+        "train_gated": (rows, cfg.d_inner_ssm, f32, bf16, "mamba2_370m"),
+        "llama3_train_norm": (rows_l, lcfg.d_model, bf16, bf16,
+                              "llama3_8b_cut_layer")}
+    shapes = {k: v[:4] + (shapes_by[v[4]].get(v[:3], 0),)
+              for k, v in train_shapes.items()}
+    errs = RB.check_shapes({"kernel": RK.rmsnorm}, shapes, SEED)
+    t = RB.time_shapes({"kernel": RK.rmsnorm, "library": RB.library},
+                       shapes, rounds=1, seed=SEED)
+    for k, (r, dd, xdt, wdt, n) in shapes.items():
+        tk = t[k]
+        kc, kw = tk["kernel"]["cold"], tk["kernel"]["warm"]
+        lc, lw = tk["library"]["cold"], tk["library"]["warm"]
+        b_ms = tk["bound_ms"]
+        print(f"[18e] rmsnorm {k} ({r}, {dd}) x {xdt}, w {wdt}: cold "
+              f"{kc * 1e3:.2f} us ({100 * b_ms / kc:.1f}% of the "
+              f"{b_ms * 1e3:.3f} us {tk['bound_by']} bound), warm "
+              f"{kw * 1e3:.2f} us; F.rms_norm cold {lc * 1e3:.2f} us, warm "
+              f"{lw * 1e3:.2f} us; max|err| {errs[k]['kernel']:.3e}; {n} "
+              f"launches in {train_shapes[k][4]}'s run ({card})")
+        rec["rmsnorm"]["shapes"][k] = {
+            "us_cold": kc * 1e3, "us_warm": kw * 1e3,
+            "library_us_cold": lc * 1e3, "library_us_warm": lw * 1e3,
+            "bound_us": b_ms * 1e3, "bound_by": tk["bound_by"],
+            "launches": n}
+    # the microbatch's chunk, x, B and C as views of one conv output
+    Bb, Q = TRAIN_BATCH // tc.microbatches, cfg.ssm.chunk_size
+    H, P, N = cfg.n_ssm_heads, cfg.ssm.head_dim, cfg.ssm.d_state
+    g = torch.Generator(dev).manual_seed(SEED)
+    conv = torch.randn(Bb, Q, H * P + 2 * N, generator=g,
+                       device=dev).to(bf16)
+    rest = [torch.nn.functional.softplus(torch.randn(
+        Bb, Q, H, generator=g, device=dev)),
+        -torch.exp(torch.randn(H, generator=g, device=dev) * 0.3),
+        torch.randn(Bb, H, P, N, generator=g, device=dev)]
+
+    def views(conv, dt, A, h):
+        return (conv[..., :H * P].reshape(Bb, Q, H, P), dt, A,
+                conv[..., H * P:H * P + N], conv[..., H * P + N:], h)
+
+    args = views(conv, *rest)
+    (y, hn), (yr, hr) = SK.ssd_chunk(*args), ssd_chunk_ref(*args)
+    for got_, want_ in ((y, yr), (hn, hr)):
+        torch.testing.assert_close(got_, want_, rtol=TOL,
+                                   atol=1e-5 * float(want_.abs().max()))
+    ssd_err = max(float((y - yr).abs().max()), float((hn - hr).abs().max()))
+    ms = timed_ms(lambda: SK.ssd_chunk(*args), reps=50, warmup=3)
+    plain_ms = timed_ms(lambda: ssd_chunk_ref(*args), reps=5, warmup=1,
+                        host_paced_ok=True)
+    leaves = [t.clone().requires_grad_() for t in [conv] + rest]
+    gy, gh = torch.randn_like(y), torch.randn_like(hn)
+
+    def plain_backward():
+        torch.autograd.grad(ssd_chunk_ref(*views(*leaves)), leaves, (gy, gh))
+
+    bwd_ms = timed_ms(plain_backward, reps=5, warmup=1, host_paced_ok=True)
+    cbt = Bb * Q * (Q + 1) * N
+    per_head = Q * (Q + 1) * P + 4 * Q * P * N
+    b_ms, b_by = bound(list(args) + [y, hn], 1, Bb * H * per_head,
+                       bf16_tc_flops=cbt)
+    b2_ms, b2_by = bound(list(args) + [y, hn], 0, 0,
+                         bf16_tc_flops=3 * Bb * H * per_head + cbt)
+    if b2_ms < b_ms:
+        b_ms, b_by = b2_ms, b2_by
+    n5 = path["mamba2_370m"]["ssd_chunk"]
+    print(f"[18e] ssd_chunk at the microbatch's chunk {(Bb, Q, H, P, N)} "
+          f"(bf16 x, B, C as views): {ms * 1e3:.1f} us, "
+          f"{100 * b_ms / ms:.1f}% of the {b_ms * 1e3:.2f} us {b_by} bound;"
+          f" plain {plain_ms:.3f} ms; the plain backward (recompute and "
+          f"autograd.grad, what SSDChunkFunction's backward runs) "
+          f"{bwd_ms:.3f} ms, {bwd_ms / ms:.0f}x the kernel's forward; "
+          f"max|err| {ssd_err:.3e}; {n5} launches in [18a]'s "
+          f"{TRAIN_STEPS} steps ({card})")
+    rec["ssd_chunk"]["shapes"]["train_chunk"] = {
+        "shape": [Bb, Q, H, P, N], "us": ms * 1e3, "plain_ms": plain_ms,
+        "plain_backward_ms": bwd_ms, "bound_us": b_ms * 1e3,
+        "bound_by": b_by, "max_abs_err": ssd_err, "launches": n5}
+    for r in records:
+        r["launches_by_train_path"] = {k: v.get(r["name"], 0)
+                                       for k, v in path.items()}
+    t18 = time.perf_counter() - t18
+    print(f"[18] phase 18 took {t18:.1f} s ({card})")
+    return t18
 
 
 def main() -> int:
@@ -2263,7 +2789,11 @@ def main() -> int:
     t17 = phase17(dev, card, records)
     check(t17 <= 400.0, "phase 17 takes at most 400 s")
 
-    print(f"[17] chip_smoke.py took {time.perf_counter() - t_start:.1f} s "
+    # 18. the train step
+    t18 = phase18(dev, card, records)
+    check(t18 <= 300.0, "phase 18 takes at most 300 s")
+
+    print(f"[18] chip_smoke.py took {time.perf_counter() - t_start:.1f} s "
           f"in all")
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {

@@ -9,8 +9,8 @@ back.  Layouts are the JAX package's:
   HPL: a (n, n) float32; an LU factorization as its packed ``lu`` (n, n)
        float32 and ``piv`` (n // nb, nb) int32
   LM:  the ``init_params`` tree of any family (nested dicts, layers
-       stacked on a leading axis) and the decode cache dict, as float32
-       numpy arrays (an int8 K/V cache as int8)
+       stacked on a leading axis), both ways, and the decode cache dict,
+       as float32 numpy arrays (an int8 K/V cache as int8)
 """
 from __future__ import annotations
 
@@ -121,6 +121,41 @@ def params_from_numpy(tree: dict, cfg: ModelConfig, device="cuda") -> Model:
         else:
             _load(child, tree[name], name)
     return model
+
+
+def _stack(trees: list):
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    return np.stack(trees)
+
+
+def params_to_numpy(model: Model, cfg: ModelConfig,
+                    tensors: dict | None = None) -> dict:
+    """The inverse of ``params_from_numpy``: the port's model as the JAX
+    package's ``init_params`` tree of float32 numpy arrays, its layers
+    stacked on a leading axis.  ``tensors``, keyed by parameter name as
+    ``model.named_parameters()`` names them (gradients, AdamW moments),
+    gives the arrays in the parameters' places."""
+    named = dict(model.named_parameters()) if tensors is None else tensors
+
+    def walk(module: torch.nn.Module, prefix: str) -> dict:
+        out = {k: to_numpy(named[prefix + k].float())
+               for k, _ in module.named_parameters(recurse=False)}
+        for k, child in module.named_children():
+            out[k] = walk(child, f"{prefix}{k}.")
+        return out
+
+    if len(model.layers) != cfg.n_layers:
+        raise ValueError(f"the model has {len(model.layers)} layers, its "
+                         f"configuration {cfg.n_layers}")
+    tree = {}
+    for name, child in model.named_children():
+        if isinstance(child, torch.nn.ModuleList):
+            tree[name] = _stack([walk(layer, f"{name}.{i}.")
+                                 for i, layer in enumerate(child)])
+        else:
+            tree[name] = walk(child, f"{name}.")
+    return tree
 
 
 # the decode cache's entries: those kept in float32, and those in the

@@ -1,16 +1,30 @@
 """RMSNorm on either device: the counterpart of the JAX package's
 ``repro.kernels.rmsnorm.ops.rmsnorm``.
 
-A CPU tensor takes the plain version (``ref.py``); a CUDA tensor takes the
-hand-written kernel (``kernel.py``), which raises on anything it cannot
-run.  There is no fallback from the kernel to the plain version.
+A CPU tensor takes the plain version (``ref.py``), which autograd
+differentiates directly; a CUDA tensor takes the hand-written kernel
+(``kernel.py``), which raises on anything it cannot run.  There is no
+fallback from the kernel to the plain version.  Where autograd records
+the call, the kernel runs inside ``RMSNormFunction``, whose backward is
+autograd of the plain version (``kernels/autograd.py``).
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.autograd import KernelFunction, needs_grad
 from repro_torch.kernels.rmsnorm import kernel
 from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+
+
+class RMSNormFunction(KernelFunction):
+    """B4 forward, autograd of ``rmsnorm_ref`` backward."""
+
+
+def _kernel_nd(x: torch.Tensor, w: torch.Tensor,
+               eps: float) -> torch.Tensor:
+    shape = x.shape
+    return kernel.rmsnorm(x.reshape(-1, shape[-1]), w, eps).reshape(shape)
 
 
 def rmsnorm(x: torch.Tensor, w: torch.Tensor, *,
@@ -20,5 +34,6 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, *,
     works: the CUDA kernel has no block-divisibility condition."""
     if x.device.type == "cpu" and w.device.type == "cpu":
         return rmsnorm_ref(x, w, eps)
-    shape = x.shape
-    return kernel.rmsnorm(x.reshape(-1, shape[-1]), w, eps).reshape(shape)
+    if needs_grad(x, w):
+        return RMSNormFunction.apply(_kernel_nd, rmsnorm_ref, x, w, eps)
+    return _kernel_nd(x, w, eps)

@@ -1,16 +1,24 @@
 """One SSD chunk on either device: the counterpart of the JAX package's
 ``repro.kernels.ssd_chunk.ops.ssd_chunk``.
 
-A CPU tensor takes the plain version (``ref.py``); a CUDA tensor takes the
-hand-written kernel (``kernel.py``), which raises on anything it cannot
-run.  There is no fallback from the kernel to the plain version.
+A CPU tensor takes the plain version (``ref.py``), which autograd
+differentiates directly; a CUDA tensor takes the hand-written kernel
+(``kernel.py``), which raises on anything it cannot run.  There is no
+fallback from the kernel to the plain version.  Where autograd records
+the call, the kernel runs inside ``SSDChunkFunction``, whose backward is
+autograd of the plain version (``kernels/autograd.py``).
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.autograd import KernelFunction, needs_grad
 from repro_torch.kernels.ssd_chunk import kernel
 from repro_torch.kernels.ssd_chunk.ref import ssd_chunk_ref
+
+
+class SSDChunkFunction(KernelFunction):
+    """B5 forward, autograd of ``ssd_chunk_ref`` backward."""
 
 
 def ssd_chunk(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
@@ -25,4 +33,6 @@ def ssd_chunk(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     args = (x, dt, A, B_mat, C_mat, h)
     if all(t.device.type == "cpu" for t in args):
         return ssd_chunk_ref(*args)
+    if needs_grad(*args):
+        return SSDChunkFunction.apply(kernel.ssd_chunk, ssd_chunk_ref, *args)
     return kernel.ssd_chunk(*args)

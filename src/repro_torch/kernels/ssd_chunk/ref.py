@@ -15,12 +15,14 @@ def ssd_chunk_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
 
     x: (B, Q, H, P); dt: (B, Q, H); A: (H,); B_mat/C_mat: (B, Q, N);
     h: (B, H, P, N).  Returns (y (B, Q, H, P), h_new (B, H, P, N)), both
-    float32.
+    float32 (float64 where x is float64, so that
+    ``torch.autograd.gradcheck`` can run it).
     """
-    xf, dtf = x.float(), dt.float()
-    bm, cm, hf = B_mat.float(), C_mat.float(), h.float()
+    acc = torch.promote_types(x.dtype, torch.float32)
+    xf, dtf = x.to(acc), dt.to(acc)
+    bm, cm, hf = B_mat.to(acc), C_mat.to(acc), h.to(acc)
     q = x.shape[1]
-    cs = torch.cumsum(dtf * A.float(), dim=1)                 # (B, Q, H)
+    cs = torch.cumsum(dtf * A.to(acc), dim=1)                 # (B, Q, H)
     # L[i, j] = exp(cs_i - cs_j) for i >= j.  Mask BEFORE exp: the upper
     # triangle's differences are positive and would overflow.
     diff = cs[:, :, None, :] - cs[:, None, :, :]               # (B, Q, Q, H)

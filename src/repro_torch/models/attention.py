@@ -171,13 +171,21 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         kf = torch.nn.functional.pad(kf, (0, 0, 0, k_pad))
         vf = torch.nn.functional.pad(vf, (0, 0, 0, k_pad))
 
+    # the running statistics of the rows the current kv chunk reaches;
+    # rebuilt each chunk, never written in place, so autograd can
+    # differentiate through them
     m = torch.full((B, KVH, Sq, G), _NEG_INF, dtype=torch.float32,
                    device=dev)
     l = torch.zeros((B, KVH, Sq, G), dtype=torch.float32, device=dev)
     acc = torch.zeros((B, KVH, Sq, G, dh), dtype=torch.float32, device=dev)
+    done_l, done_acc = [], []   # triangular: rows no later chunk reaches
     qpos = q_offset + torch.arange(Sq, device=dev)
     for j in range(min(nk, nq) if triangular else nk):
         r0 = j * qc if triangular else 0
+        if r0:
+            done_l.append(l[:, :, :qc])
+            done_acc.append(acc[:, :, :qc])
+            m, l, acc = m[:, :, qc:], l[:, :, qc:], acc[:, :, qc:]
         R = Sq - r0
         kj, vj = kf[:, :, j * kc:(j + 1) * kc], vf[:, :, j * kc:(j + 1) * kc]
         s = torch.matmul(qf[:, :, r0:].reshape(B, KVH, R * G, dh),
@@ -191,14 +199,16 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if window > 0:
             mask = mask & (diff < window)
         s = torch.where(mask[None, None, :, None, :], s, _NEG_INF)
-        mv, lv, av = m[:, :, r0:], l[:, :, r0:], acc[:, :, r0:]
-        m_new = torch.maximum(mv, torch.amax(s, dim=-1))
+        m_new = torch.maximum(m, torch.amax(s, dim=-1))
         p = torch.exp(s - m_new[..., None])
-        corr = torch.exp(mv - m_new)
-        lv.mul_(corr).add_(torch.sum(p, dim=-1))
+        corr = torch.exp(m - m_new)
+        l = l * corr + torch.sum(p, dim=-1)
         pv = torch.matmul(p.reshape(B, KVH, R * G, kc), vj)
-        av.mul_(corr[..., None]).add_(pv.reshape(B, KVH, R, G, dh))
-        mv.copy_(m_new)
+        acc = acc * corr[..., None] + pv.reshape(B, KVH, R, G, dh)
+        m = m_new
+    if done_l:
+        l = torch.cat(done_l + [l], dim=2)
+        acc = torch.cat(done_acc + [acc], dim=2)
     o = acc / torch.clamp_min(l, 1e-20)[..., None]
     return o.permute(0, 2, 1, 3, 4).reshape(B, Sq, H, dh).to(q.dtype)
 

@@ -25,7 +25,9 @@ def param_dtype(cfg: ModelConfig) -> torch.dtype:
 
 
 def frozen(t: torch.Tensor) -> nn.Parameter:
-    """A parameter for serving: no gradient is kept for it."""
+    """A parameter for serving: no gradient is kept for it
+    (``model.requires_grad_()`` makes a model trainable; the train step
+    does so)."""
     return nn.Parameter(t, requires_grad=False)
 
 

@@ -3,10 +3,11 @@ qwen, minitron, olmo), MoE decoders (grok, deepseek with MLA), pure SSM
 (mamba2), hybrid attention ∥ SSM (hymba), encoder-decoder (whisper) and
 VLM prefix models (llava).
 
-Counterpart of the JAX package's ``repro/models/transformer.py`` (its
-serve path: the train loss and remat come with the train step, ROADMAP
-A6).  Layers run in a Python loop where the JAX package scans over
-stacked layer parameters; the decode cache keeps the JAX package's
+Counterpart of the JAX package's ``repro/models/transformer.py``, less
+its mesh constraints.  Layers run in a Python loop where the JAX package
+scans over stacked layer parameters, and remat is
+``torch.utils.checkpoint`` where the JAX package has ``jax.checkpoint``
+(``_remat``); the decode cache keeps the JAX package's
 stacked keys and layouts, so the two packages' caches compare directly:
 
   k, v:     (L, B, S, KVH, dh) in the model's dtype, or int8 with
@@ -21,8 +22,12 @@ With a sliding window, k and v hold a ring buffer of ``window`` slots.
 """
 from __future__ import annotations
 
+import math
+
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.config import ModelConfig
 from repro_torch.device import resolve_device
@@ -203,15 +208,26 @@ def _encoder_layer_fwd(cfg: ModelConfig, p: EncoderLayer, x):
 
 
 # ---------------------------------------------------------------------------
-# Full-model forward (prefill)
+# Full-model forward (train / prefill)
 # ---------------------------------------------------------------------------
 
-def _run_encoder(cfg: ModelConfig, params: Model, frame_embeds):
+def _remat(fn, *args):
+    """``fn(*args)`` under an activation checkpoint: what it saves for
+    backward is dropped after the forward and made again by re-running
+    ``fn`` when backward needs it (``jax.checkpoint``'s counterpart).  The
+    model draws no random numbers, so no RNG state is kept."""
+    return checkpoint(fn, *args, use_reentrant=False,
+                      preserve_rng_state=False)
+
+
+def _run_encoder(cfg: ModelConfig, params: Model, frame_embeds, *,
+                 remat: bool = False):
     x = apply_frontend(cfg, params.frontend, frame_embeds)
     pe = sinusoidal_positions(x.shape[1], cfg.d_model, x.device).to(x.dtype)
     x = x + pe[None]
     for layer in params.enc_layers:
-        x = _encoder_layer_fwd(cfg, layer, x)
+        x = (_remat(_encoder_layer_fwd, cfg, layer, x) if remat
+             else _encoder_layer_fwd(cfg, layer, x))
     return apply_norm(cfg, params.enc_final_norm, x)
 
 
@@ -228,28 +244,117 @@ def _embed_inputs(cfg: ModelConfig, params: Model, batch):
     return x, torch.arange(x.shape[1], device=x.device)
 
 
+def block_size(n_layers: int) -> int:
+    """Largest divisor of n_layers <= sqrt(n_layers) (sqrt-remat
+    blocks)."""
+    return max(b for b in range(1, math.isqrt(n_layers) + 1)
+               if n_layers % b == 0)
+
+
 def forward_hidden(cfg: ModelConfig, params: Model, batch, *,
-                   block_skip: bool = False, want_cache: bool = False):
+                   block_skip: bool = False, want_cache: bool = False,
+                   remat: bool = False, remat_policy: str = "layer"):
     """Embed + all decoder layers + the final norm.  Returns (hidden (B,
     S, D), the cache dict of layer-stacked entries or None, the summed MoE
-    aux loss, the encoder states or None)."""
+    aux loss, the encoder states or None).
+
+    ``remat`` checkpoints each layer (and each encoder layer).
+    ``remat_policy='block'`` (without ``want_cache``) is sqrt-remat, as
+    in the reference: blocks of ``block_size(L)`` layers, each block
+    checkpointed whole with a checkpoint around each of its layers
+    inside, so backward keeps only the blocks' boundary residuals and
+    runs a block's layers again twice (the block, then each layer),
+    but for its last, before which the block's recompute stops."""
     enc_states = None
     if cfg.family == "encdec":
-        enc_states = _run_encoder(cfg, params, batch["frame_embeds"])
+        enc_states = _run_encoder(cfg, params, batch["frame_embeds"],
+                                  remat=remat)
     x, positions = _embed_inputs(cfg, params, batch)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    per_layer: dict[str, list] = {}
-    for layer in params.layers:
+
+    def layer_fwd(layer, x, aux):
         x, cache, aux_l = _decoder_layer_fwd(
             cfg, layer, x, positions, block_skip=block_skip,
             enc_states=enc_states, want_cache=want_cache)
-        aux = aux + aux_l
-        for k, t in (cache or {}).items():
-            per_layer.setdefault(k, []).append(t)
+        return x, aux + aux_l, cache
+
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    layers = list(params.layers)
+    per_layer: dict[str, list] = {}
+    if remat and remat_policy == "block" and not want_cache:
+        bs = block_size(cfg.n_layers)
+
+        def block_fwd(i0, x, aux):
+            for layer in layers[i0:i0 + bs]:
+                x, aux, _ = _remat(layer_fwd, layer, x, aux)
+            return x, aux
+
+        for i0 in range(0, len(layers), bs):
+            x, aux = _remat(block_fwd, i0, x, aux)
+    else:
+        for layer in layers:
+            x, aux, cache = (_remat(layer_fwd, layer, x, aux) if remat
+                             else layer_fwd(layer, x, aux))
+            for k, t in (cache or {}).items():
+                per_layer.setdefault(k, []).append(t)
     x = apply_norm(cfg, params.final_norm, x)
     caches = ({k: torch.stack(ts) for k, ts in per_layer.items()}
               if want_cache else None)
     return x, caches, aux, enc_states
+
+
+# ---------------------------------------------------------------------------
+# Training loss
+# ---------------------------------------------------------------------------
+
+def _chunk_nll(cfg: ModelConfig, params: Model, h: torch.Tensor,
+               labels: torch.Tensor):
+    """(sum of the valid labels' negative log-likelihoods, their count)
+    over one chunk, from float32 logits."""
+    logits = lm_head_logits(cfg, params.embed, params.lm_head, h).float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1,
+                        torch.clamp_min(labels, 0).long()[..., None])[..., 0]
+    valid = (labels >= 0).float()
+    return torch.sum((lse - gold) * valid), torch.sum(valid)
+
+
+def chunked_lm_loss(cfg: ModelConfig, params: Model, hidden: torch.Tensor,
+                    labels: torch.Tensor, chunk: int = 1024) -> torch.Tensor:
+    """Cross-entropy without materializing the full (B, S, V) float32
+    logits: chunks of ``chunk`` positions (the last padded with label
+    -1), the mean over the valid labels.  Each chunk's loss is
+    checkpointed, so backward keeps one chunk's logits at a time and not
+    every chunk's (the numbers are the same)."""
+    B, S, D = hidden.shape
+    chunk = min(chunk, S)
+    n = -(-S // chunk)
+    pad = n * chunk - S
+    if pad:
+        hidden = F.pad(hidden, (0, 0, 0, pad))
+        labels = F.pad(labels, (0, pad), value=-1)
+    tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for i in range(n):
+        sl = slice(i * chunk, (i + 1) * chunk)
+        nll, count = _remat(_chunk_nll, cfg, params, hidden[:, sl],
+                            labels[:, sl])
+        tot, cnt = tot + nll, cnt + count
+    return tot / torch.clamp_min(cnt, 1.0)
+
+
+def forward_train_loss(cfg: ModelConfig, params: Model, batch, *,
+                       remat: bool = True, block_skip: bool = False,
+                       remat_policy: str = "layer"):
+    """The training loss: the LM loss over ``batch["labels"]`` plus the
+    MoE aux loss.  Returns (loss, {"lm_loss", "aux_loss"})."""
+    hidden, _, aux, _ = forward_hidden(cfg, params, batch, remat=remat,
+                                       block_skip=block_skip,
+                                       remat_policy=remat_policy)
+    if cfg.family == "vlm":
+        # loss on text tokens only; hidden includes the patch prefix
+        hidden = hidden[:, batch["patch_embeds"].shape[1]:]
+    loss = chunked_lm_loss(cfg, params, hidden, batch["labels"])
+    return loss + aux, {"lm_loss": loss, "aux_loss": aux}
 
 
 # ---------------------------------------------------------------------------

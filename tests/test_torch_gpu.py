@@ -954,3 +954,126 @@ def test_executed_simulation_on_the_card_keeps_the_trace(cuda):
     assert K.LAUNCHES["dslash_eo_split"] == before[0]["dslash_eo_split"] + eo
     assert K.LAUNCHES["dslash_split"] == before[0]["dslash_split"] + full
     assert G.LAUNCHES["dgemm"] == before[1] + gemm
+
+
+# the train step: B4 and B5 under autograd (their autograd.Functions run
+# the kernel forward and autograd of the plain version backward)
+@pytest.mark.parametrize("rows,d,dtype", [
+    (4096, 1024, torch.bfloat16),     # mamba2's norms, a 2 x 2048 microbatch
+    (4096, 2048, torch.float32),      # its gated norm
+    (4096, 4096, torch.bfloat16),     # llama3-8b's norms at 2 x 2048
+    (8192, 1024, torch.bfloat16)])    # the serve path's prefill norm
+def test_rmsnorm_function_gradients_on_the_card(cuda, rows, d, dtype):
+    """One forward launch, none in backward; the output within the
+    kernel's tolerance of the plain version's, the gradients equal to
+    autograd of the plain version on the same inputs (the Function's
+    backward is that computation)."""
+    x, w = _rms_case(rows, d, dtype, torch.bfloat16, cuda)
+    x, w = x.requires_grad_(), w.requires_grad_()
+    before = RMK.LAUNCHES["rmsnorm"]
+    y = rmops.rmsnorm(x, w)
+    assert RMK.LAUNCHES["rmsnorm"] == before + 1
+    gy = torch.randn_like(y)
+    got = torch.autograd.grad(y, (x, w), gy)
+    assert RMK.LAUNCHES["rmsnorm"] == before + 1
+    yr = rmref.rmsnorm_ref(x, w)
+    want = torch.autograd.grad(yr, (x, w), gy)
+    tol = RMS_TOL[dtype]
+    torch.testing.assert_close(y.float(), yr.float(), rtol=tol, atol=tol)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("B,Q,H,P,N", [(2, 256, 32, 64, 128),
+                                       (1, 256, 50, 64, 16)])
+def test_ssd_chunk_function_gradients_on_the_card(cuda, B, Q, H, P, N):
+    """mamba2's chunk at a 2 x 2048 microbatch and hymba's, x, B and C
+    bf16 views of one conv output: one forward launch, none in backward,
+    the gradients of every input equal to autograd of the plain
+    version's."""
+    g = torch.Generator().manual_seed(Q + H)
+    conv = torch.randn(B, Q, H * P + 2 * N, generator=g).to(cuda,
+                                                           torch.bfloat16)
+    dt = torch.nn.functional.softplus(torch.randn(B, Q, H, generator=g))
+    A = -torch.exp(torch.randn(H, generator=g) * 0.3)
+    h = torch.randn(B, H, P, N, generator=g)
+    leaves = [t.to(cuda).requires_grad_() for t in (conv, dt, A, h)]
+
+    def views(conv, dt, A, h):
+        return (conv[..., :H * P].reshape(B, Q, H, P), dt, A,
+                conv[..., H * P:H * P + N], conv[..., H * P + N:], h)
+
+    before = SSK.LAUNCHES["ssd_chunk"]
+    y, hn = ssops.ssd_chunk(*views(*leaves))
+    assert SSK.LAUNCHES["ssd_chunk"] == before + 1
+    gy, gh = torch.randn_like(y), torch.randn_like(hn)
+    got = torch.autograd.grad((y, hn), leaves, (gy, gh))
+    assert SSK.LAUNCHES["ssd_chunk"] == before + 1
+    want = torch.autograd.grad(ssref.ssd_chunk_ref(*views(*leaves)), leaves,
+                               (gy, gh))
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype
+        assert torch.equal(a, b)
+
+
+def test_forward_launches_with_and_without_grad(cuda):
+    """The mamba2 smoke model's forward launches B4 and B5 as often with
+    autograd recording (trainable parameters) as under inference_mode,
+    and its backward launches neither."""
+    import copy
+    from repro_torch.config import smoke_config
+    from repro_torch.models import init_params
+    from repro_torch.models.transformer import forward_hidden
+    cfg = smoke_config("mamba2-370m")
+    p = init_params(cfg, torch.Generator().manual_seed(0), "cpu").to(cuda)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 45),
+                                     device=cuda)}
+    counts = []
+    for grad in (False, True):
+        model = copy.deepcopy(p).requires_grad_() if grad else p
+        before = (RMK.LAUNCHES["rmsnorm"], SSK.LAUNCHES["ssd_chunk"])
+        with torch.inference_mode(not grad):
+            h = forward_hidden(cfg, model, batch)[0]
+        counts.append((RMK.LAUNCHES["rmsnorm"] - before[0],
+                       SSK.LAUNCHES["ssd_chunk"] - before[1]))
+        if grad:
+            h.float().sum().backward()
+            assert (RMK.LAUNCHES["rmsnorm"], SSK.LAUNCHES["ssd_chunk"]) == \
+                (before[0] + counts[-1][0], before[1] + counts[-1][1])
+    assert counts[0] == counts[1] == (2 * cfg.n_layers + 1, 2 * cfg.n_layers)
+
+
+@pytest.mark.parametrize("arch", ["mamba2-370m", "llama3-8b", "hymba-1.5b",
+                                  "deepseek-v2-236b"])
+def test_train_step_on_the_card_matches_the_cpu(cuda, arch):
+    """One float32 loss and its gradients (remat "layer"), then a train
+    step, on the CPU (plain versions) and the card (kernels), same
+    weights: the loss and the gradient norm within 1e-4, each gradient
+    leaf within 1e-3 of its largest value (chip_smoke.py's [18d]; B5's
+    own f32 sums put mamba2's A_log gradient, summed over every
+    position, ~1.1e-4 of its largest value apart)."""
+    import copy
+    import dataclasses
+    from repro_torch.config import TrainConfig, smoke_config
+    from repro_torch.models import init_params
+    from repro_torch.optim import adamw_init
+    from repro_torch.runtime.steps import loss_and_grads, make_train_step
+    cfg = dataclasses.replace(smoke_config(arch), dtype="float32")
+    tc = TrainConfig(warmup_steps=1, learning_rate=3e-3)
+    cpu = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    rng = np.random.default_rng(0)
+    b = {k: torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 45)))
+         for k in ("tokens", "labels")}
+    out = {}
+    for where, p in (("cpu", cpu), ("card", copy.deepcopy(cpu).to(cuda))):
+        bb = {k: v.to(p.embed.tokens.device) for k, v in b.items()}
+        loss, _, g = loss_and_grads(cfg, tc, p.requires_grad_(), bb)
+        _, _, m = make_train_step(cfg, tc)(p, adamw_init(p), bb)
+        out[where] = (float(loss), g, float(m["grad_norm"]))
+    (lc, gc, nc), (lg, gg, ng) = out["cpu"], out["card"]
+    assert lg == pytest.approx(lc, rel=1e-4)
+    assert ng == pytest.approx(nc, rel=1e-4)
+    for k, a in gc.items():
+        scale = float(a.abs().max())
+        assert float((gg[k].cpu() - a).abs().max()) <= 1e-3 * scale, k
