@@ -93,7 +93,8 @@ Phases (one line each, or a few):
      at n = 4096 timed on the card twice (``MeasuredHPLModel``, the
      fastest of 3 runs a point: each run's wall and residual, each
      point's GFLOP/s, each search's pick) beside the analytic pick, and
-     ``HPLConfig(n=32768).tuned()``'s blocking (not run);
+     ``HPLConfig(n=32768).tuned()``'s blocking (not run); and the plain
+     version's and ``torch.matmul``'s times at the small product;
  16. the online simulator and trace replay on the card: (a)
      ``simulate(..., execute=True)`` of two HPL jobs at n = 4096 and three
      LQCD solves on the smoke lattice (phase 13's calibration) on two
@@ -157,7 +158,26 @@ Phases (one line each, or a few):
      1e-4, each gradient leaf within 1e-3 of its largest value); (e) B4
      at the train shapes cold and warm beside ``F.rms_norm``, B5 at the
      microbatch's chunk, and the plain SSD backward, timed beside their
-     bounds.
+     bounds;
+ 19. the training driver (``python -m repro_torch.launch.train`` through
+     its ``main``): (a) mamba2-370m at its published widths, 4 x 2048, 6
+     steps under the driver's remat "none", a checkpoint every 2 steps
+     into a temporary directory the phase deletes: each step's loss and
+     wall, B4 and B5 launched a step exactly as the structure says, peak
+     memory beside ``estimate_train_bytes``, the blocking time of each
+     ``save()`` and of the final ``wait()``, the bytes written, the
+     driver's ``[energy]`` lines beside nvidia-smi's mean draw over the
+     run, and the newest checkpoint restored into a fresh model bit-equal
+     to the parameters at that step; (b) the fault path on its 2-layer
+     cut: non-finite losses injected by a wrapper of the step at steps 0
+     (before any checkpoint), 3 and, past the 2 retries, 5 and 6: after
+     each rollback the parameters and AdamW state bit-equal to the last
+     checkpointed step's (or to the state before the step), the bad step
+     kept past the retries, the rollback count as the reference's rule
+     says; (c) the driver on the olmo-1b and mamba2-370m smoke configs at
+     float32, 6 steps on the CPU and on the card from the same weights:
+     losses and checkpoint leaves within [18d]'s tolerances; (d) the five
+     examples (``examples/torch_*.py``) on the card.
 Every time is taken by ``repro_torch.kernels.timing``: the calls are
 queued behind a sleep kernel, and a kernel's or a library call's reading
 that the host paced is taken again behind a longer sleep (a plain
@@ -255,6 +275,17 @@ TRAIN_SMOKE = (2, 45)     # [18d]: every smoke config's batch, sequence
 TRAIN_GRAD_TOL = {"float32": 1e-3, "bfloat16": 2e-2}
 TRAIN_LOSS_TOL = {"float32": 1e-4, "bfloat16": 2e-2}   # relative
 TRAIN_P_TOL = 1e-6
+# phase 19: the training driver, launch.train
+DRIVER_BATCH, DRIVER_SEQ, DRIVER_STEPS, DRIVER_EVERY = 4, 2048, 6, 2
+FAULT_RUN = (2, 2, 512, 8)     # [19b]: layers, batch, sequence, steps
+# [19b]'s steps whose loss is made non-finite: step 0 before any
+# checkpoint (undone), step 3 after one (back to step 2's), steps 5 and 6
+# past FaultPolicy's 2 retries (kept)
+FAULT_BAD = (0, 3, 5, 6)
+DRIVER_SMOKE = (("olmo-1b", "mamba2-370m"), 2, 45, 6)   # [19c]
+EXAMPLES = ("torch_quickstart", "torch_lqcd_cg",
+            "torch_green500_measurement", "torch_autotune_sweep",
+            "torch_efficient_serving")
 WATT_QUERY = ["nvidia-smi", "--query-gpu=power.draw,clocks.sm",
               "--format=csv,noheader,nounits", "-lms", "100"]
 
@@ -1334,6 +1365,384 @@ def phase18(dev, card: str, records: list) -> float:
     t18 = time.perf_counter() - t18
     print(f"[18] phase 18 took {t18:.1f} s ({card})")
     return t18
+
+
+def train_state(params, opt) -> list:
+    """A copy of every tensor a train step writes (the parameters, the
+    AdamW moments and step count), on their device."""
+    return [t.detach().clone() for t in (*params.parameters(),
+                                         *opt["m"].values(),
+                                         *opt["v"].values(), opt["step"])]
+
+
+def phase19(dev, card: str, records: list) -> float:
+    """[19] The training driver on the card: (a) mamba2-370m at its
+    published widths through ``launch.train.main``, its checkpoints and
+    energy lines; (b) the fault path on its 2-layer cut; (c) the smoke
+    configs on the CPU and the card; (d) the five examples.  Returns the
+    phase's seconds."""
+    import contextlib
+    import dataclasses
+    import importlib.util
+    import io
+    import shutil
+    import statistics
+    import tempfile
+    import types
+    from unittest import mock
+
+    import numpy as np
+    import torch
+
+    from repro_torch.autotune import set_default_cache
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.config import (MeshConfig, ShapeConfig, TrainConfig,
+                                    full_config, get_arch)
+    from repro_torch.distributed.fault import FaultPolicy
+    from repro_torch.kernels.dgemm import kernel as G
+    from repro_torch.kernels.dslash import kernel as K
+    from repro_torch.kernels.rmsnorm import kernel as RK
+    from repro_torch.kernels.ssd_chunk import kernel as SK
+    from repro_torch.launch import train as T
+    from repro_torch.runtime.memplan import estimate_train_bytes
+    from repro_torch.runtime.steps import make_train_step
+
+    t19 = time.perf_counter()
+    torch.cuda.empty_cache()
+    mods = (K, G, RK, SK)
+    path = {}         # run -> {kernel: launches}, summed over its calls
+
+    def reset():
+        for mod in mods:
+            mod.reset_launches()
+
+    def read():
+        return {**K.LAUNCHES, **G.LAUNCHES, **RK.LAUNCHES, **SK.LAUNCHES}
+
+    def add(run, now):
+        tot = path.setdefault(run, dict.fromkeys(now, 0))
+        for k, v in now.items():
+            tot[k] += v
+
+    def counting(run, per_step, bad=(), on_entry=None, on_exit=None):
+        """make_train_step, each step's launches counted from 0 (and
+        added to ``run``'s), the loss of the calls in ``bad`` made NaN;
+        ``on_entry(i, params, opt)`` and ``on_exit`` see the state."""
+        def make(cfg, tc):
+            step = make_train_step(cfg, tc)
+
+            def wrapped(params, opt, batch):
+                i = len(per_step)
+                if on_entry:
+                    on_entry(i, params, opt)
+                reset()
+                params, opt, m = step(params, opt, batch)
+                now = read()
+                per_step.append(now)
+                add(run, now)
+                if on_exit:
+                    on_exit(i, params, opt)
+                if i in bad:
+                    m = dict(m, loss=torch.full((), math.nan,
+                                                device=m["loss"].device))
+                return params, opt, m
+            return wrapped
+        return make
+
+    def driver(argv, buf):
+        with contextlib.redirect_stdout(buf):
+            return T.main(argv)
+
+    one_card = MeshConfig((1, 1), ("data", "model"))
+    ckroot = Path(tempfile.mkdtemp(prefix="chip_smoke_ckpt_"))
+    try:
+        # 19a. mamba2-370m at its published widths through the driver
+        cfg = full_config(ARCH)
+        tc = TrainConfig(remat="none")      # the driver's
+        want = train_launches(cfg, tc, DRIVER_SEQ)
+        last_ckpt = max(s for s in range(DRIVER_STEPS)
+                        if s % DRIVER_EVERY == 0)
+        saves, waits, at_ckpt = [], [], {}
+
+        class Manager(CheckpointManager):
+            """Times save() and wait(); keeps a host copy of the
+            parameters at the last checkpointed step."""
+
+            def save(self, step, tree, blocking=False):
+                t0 = time.perf_counter()
+                super().save(step, tree, blocking)
+                saves.append((step, time.perf_counter() - t0))
+                if step == last_ckpt:
+                    at_ckpt["params"] = [p.detach().to("cpu", copy=True)
+                                         for p in tree.parameters()]
+
+            def wait(self):
+                t0 = time.perf_counter()
+                super().wait()
+                waits.append(time.perf_counter() - t0)
+
+        per_step, buf = [], io.StringIO()
+        argv = ["--arch", ARCH, "--full", "--batch", str(DRIVER_BATCH),
+                "--seq", str(DRIVER_SEQ), "--steps", str(DRIVER_STEPS),
+                "--ckpt-every", str(DRIVER_EVERY), "--log-every", "1",
+                "--device", "cuda", "--ckpt-dir", str(ckroot / "a")]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        with mock.patch.multiple(
+                T, make_train_step=counting("driver_mamba2_370m", per_step),
+                CheckpointManager=Manager), PowerSamples() as ps:
+            run = driver(argv, buf)
+        t_run = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - held
+        est = estimate_train_bytes(
+            cfg, ShapeConfig("t", DRIVER_SEQ, DRIVER_BATCH, "train"),
+            one_card, tc)
+        losses = [h.loss for h in run.loop.history]
+        walls = [h.wall_s for h in run.loop.history]
+        wall = statistics.median(walls[1:])
+        ckdir = ckroot / "a" / cfg.name
+        nbytes = {s: sum(f.stat().st_size
+                         for f in (ckdir / f"step_{s:08d}").iterdir())
+                  for s in run.ckpt.steps()}
+        for line in buf.getvalue().splitlines():
+            print(f"[19a]   {line}")
+        print(f"[19a] launch.train {ARCH} --full: {cfg.n_layers} layers, "
+              f"{DRIVER_BATCH} x {DRIVER_SEQ} tokens a step, remat "
+              f"{tc.remat!r}, {DRIVER_STEPS} steps in {t_run:.1f} s: "
+              f"losses {[round(v, 4) for v in losses]}; step walls "
+              f"{[round(w * 1e3, 1) for w in walls]} ms (median of steps "
+              f"2-{DRIVER_STEPS} {wall * 1e3:.1f} ms, "
+              f"{DRIVER_BATCH * DRIVER_SEQ / wall:.0f} tokens/s); launches "
+              f"a step B4 {[c['rmsnorm'] for c in per_step]}, B5 "
+              f"{[c['ssd_chunk'] for c in per_step]} (the structure says "
+              f"{want['rmsnorm']} and {want['ssd_chunk']}); peak memory "
+              f"{peak / 1e9:.2f} GB beyond the {held / 1e9:.2f} GB held "
+              f"before, estimate_train_bytes {est / 1e9:.2f} GB "
+              f"(MeshConfig((1, 1))) ({card})")
+        print(f"[19a] checkpoints: save() blocked "
+              f"{[(st, round(t * 1e3, 1)) for st, t in saves]} ms (step, "
+              f"ms: the host snapshot, and the wait for the previous "
+              f"write); the final wait() {waits[-1] * 1e3:.1f} ms; steps "
+              f"kept {run.ckpt.steps()}, {nbytes} bytes each (f32 on "
+              f"disk)")
+        print(f"[19a] nvidia-smi over the run: {ps.mean_w:.2f} W mean of "
+              f"{len(ps.watts)} samples, SM clock "
+              f"{sum(ps.clocks) / len(ps.clocks):.0f} MHz mean, beside the "
+              f"driver's modelled [energy] lines above ({card})")
+        check(all(math.isfinite(v) for v in losses), "finite losses")
+        check(all(c["rmsnorm"] == want["rmsnorm"]
+                  and c["ssd_chunk"] == want["ssd_chunk"]
+                  and c["dslash_split"] == c["dslash_eo_split"]
+                  == c["dgemm"] == 0 for c in per_step)
+              and len(per_step) == DRIVER_STEPS,
+              f"B4 and B5 launched {want} a step through the driver")
+        check(run.ckpt.steps() == [0, 2, 4] and not run.loop.rollbacks,
+              "the driver checkpointed steps 0, 2 and 4, no rollback")
+        t0 = time.perf_counter()
+        fresh = T.make_params(cfg, SEED + 1, dev)
+        got = run.ckpt.restore(last_ckpt, fresh)
+        torch.cuda.synchronize()
+        t_restore = time.perf_counter() - t0
+        same = all(torch.equal(p, q.to(dev)) for p, q in
+                   zip(got.parameters(), at_ckpt["params"]))
+        n_p = sum(p.numel() for p in got.parameters())
+        print(f"[19a] restore({last_ckpt}) into a fresh model on the card: "
+              f"{n_p} parameters bit-equal to the driver's at step "
+              f"{last_ckpt}: {same}; {t_restore:.2f} s with the model's "
+              f"construction")
+        check(same, "the newest checkpoint restores bit for bit")
+        del run, fresh, got, at_ckpt["params"]
+        torch.cuda.empty_cache()
+
+        # 19b. the fault path on the 2-layer cut
+        Lc, Bc, Sc, n_steps = FAULT_RUN
+        cut = dataclasses.replace(cfg, n_layers=Lc)
+        retries = FaultPolicy().max_retries
+        rule = {"bad": 0, "last_good": None, "next": None}
+        seen, bad_state = [], []
+
+        def on_entry(i, params, opt):
+            state = train_state(params, opt)
+            if rule["next"] is not None:
+                kind, want_state = rule["next"]
+                ok = all(torch.equal(a, b) for a, b in zip(state,
+                                                           want_state))
+                seen.append((i, kind, ok))
+            rule["entered"] = state
+
+        def on_exit(i, params, opt):
+            left = train_state(params, opt)
+            if i in FAULT_BAD:
+                rule["bad"] += 1
+                bad_state.append(not all(torch.equal(a, b) for a, b in
+                                         zip(left, rule["entered"])))
+                if rule["bad"] <= retries:
+                    rule["next"] = (("back to step "
+                                     f"{rule['last_good'][0]}",
+                                     rule["last_good"][1])
+                                    if rule["last_good"] else
+                                    ("undone", rule["entered"]))
+                    return
+                rule["next"] = ("kept", left)
+            else:
+                rule["next"] = ("next", left)
+            if i % DRIVER_EVERY == 0:
+                rule["last_good"] = (i, left)
+
+        per_b, buf = [], io.StringIO()
+        entry = types.SimpleNamespace(full=lambda: cut, smoke=lambda: cut)
+        with mock.patch.multiple(T, make_train_step=counting(
+                "driver_fault_cut", per_b, FAULT_BAD, on_entry, on_exit),
+                get_arch=lambda a: entry):
+            run = driver(["--arch", ARCH, "--full", "--batch", str(Bc),
+                          "--seq", str(Sc), "--steps", str(n_steps),
+                          "--ckpt-every", str(DRIVER_EVERY), "--log-every",
+                          "1", "--device", "cuda", "--ckpt-dir",
+                          str(ckroot / "b")], buf)
+        faults = [ln for ln in buf.getvalue().splitlines()
+                  if ln.startswith("[fault]")]
+        n_bad = len(FAULT_BAD)
+        print(f"[19b] {Lc} layers at full width, {Bc} x {Sc}, {n_steps} "
+              f"steps, non-finite losses injected at steps "
+              f"{list(FAULT_BAD)}: {len(faults)} rolled back "
+              f"({[ln.split(':')[0] for ln in faults]}), rollback count "
+              f"{run.loop.rollbacks} (the reference's rule: every "
+              f"non-finite step counts, the first {retries} roll back); "
+              f"the state entering each next step, bit for bit: "
+              f"{[(i, k, ok) for i, k, ok in seen if k != 'next']}; "
+              f"checkpoints kept {run.ckpt.steps()} ({card})")
+        check(all(bad_state), "each bad step wrote the state in place")
+        check(all(ok for _, _, ok in seen) and len(seen) == n_steps - 1,
+              "after each rollback the parameters and AdamW state equal "
+              "the last checkpointed step's (or the state before the "
+              "step), bit for bit; kept past the retries")
+        check({k.split(" ")[0] for _, k, _ in seen}
+              == {"next", "undone", "back", "kept"},
+              "the fault run covers undo, rollback and kept")
+        check(run.loop.rollbacks == n_bad
+              and len(faults) == min(n_bad, retries),
+              f"rollbacks {run.loop.rollbacks}, want {n_bad}; "
+              f"{min(n_bad, retries)} rolled back")
+        del run, rule, seen
+        torch.cuda.empty_cache()
+
+        # 19c. the smoke configs, CPU against card, float32
+        archs, Bs, Ss, n_s = DRIVER_SMOKE
+        make_params = T.make_params
+        for arch in archs:
+            scfg = dataclasses.replace(get_arch(arch).smoke(),
+                                       dtype="float32")
+            entry = types.SimpleNamespace(smoke=lambda: scfg,
+                                          full=lambda: scfg)
+            runs, per_c = {}, []
+            for where in ("cpu", "cuda"):
+                argv = ["--arch", arch, "--steps", str(n_s), "--batch",
+                        str(Bs), "--seq", str(Ss), "--ckpt-every",
+                        str(DRIVER_EVERY), "--log-every", "1", "--device",
+                        where, "--ckpt-dir", str(ckroot / "c" / where)]
+                attrs = {"get_arch": lambda a: entry}
+                if where == "cuda":
+                    # the CPU's weights, moved to the card
+                    attrs["make_params"] = (
+                        lambda c, seed, d: make_params(c, seed, "cpu").to(d))
+                    attrs["make_train_step"] = counting(
+                        f"driver_smoke_{arch}", per_c)
+                with mock.patch.multiple(T, **attrs):
+                    runs[where] = driver(argv, io.StringIO())
+            lc = [h.loss for h in runs["cpu"].loop.history]
+            lg = [h.loss for h in runs["cuda"].loop.history]
+            loss_d = max(abs(a - b) / abs(a) for a, b in zip(lc, lg))
+            steps_c = runs["cpu"].ckpt.steps()
+            worst = 0.0
+            for st in steps_c:
+                d = {w: ckroot / "c" / w / scfg.name / f"step_{st:08d}"
+                     for w in ("cpu", "cuda")}
+                man = {w: json.loads((d[w] / "manifest.json").read_text())
+                       for w in d}
+                check(man["cpu"]["leaves"].keys()
+                      == man["cuda"]["leaves"].keys(),
+                      f"{arch}: the same leaves on CPU and card")
+                for name, meta in man["cpu"]["leaves"].items():
+                    a = np.load(d["cpu"] / meta["file"])
+                    b = np.load(d["cuda"] / man["cuda"]["leaves"][name][
+                        "file"])
+                    scale = float(np.abs(a).max()) or 1.0
+                    share = float(np.abs(a - b).max()) / scale
+                    worst = max(worst, share)
+                    check(share <= TRAIN_GRAD_TOL["float32"],
+                          f"{arch} smoke, step {st}: leaf {name} "
+                          f"{share:.2e} of its largest value apart")
+            one = train_launches(scfg, TrainConfig(remat="none"), Ss)
+            print(f"[19c] {arch} smoke (f32, {Bs} x {Ss}, {n_s} steps) "
+                  f"through the driver, CPU vs card: losses "
+                  f"{[round(v, 6) for v in lc]} / "
+                  f"{[round(v, 6) for v in lg]} (within {loss_d:.2e}, "
+                  f"relative); checkpoints {steps_c} / "
+                  f"{runs['cuda'].ckpt.steps()}, leaves within "
+                  f"{worst:.2e} of each leaf's largest value; card "
+                  f"launches a step B4 {[c['rmsnorm'] for c in per_c]}, "
+                  f"B5 {[c['ssd_chunk'] for c in per_c]} (want "
+                  f"{one['rmsnorm']}, {one['ssd_chunk']})")
+            check(loss_d <= TRAIN_LOSS_TOL["float32"],
+                  f"{arch} smoke: losses on CPU and card")
+            check(steps_c == runs["cuda"].ckpt.steps(),
+                  f"{arch} smoke: the same steps checkpointed")
+            check(all(c["rmsnorm"] == one["rmsnorm"]
+                      and c["ssd_chunk"] == one["ssd_chunk"]
+                      for c in per_c),
+                  f"{arch} smoke: B4/B5 launched as its structure says")
+            del runs
+
+        # 19d. the five examples on the card
+        root = Path(__file__).resolve().parent / "examples"
+        for name in EXAMPLES:
+            spec = importlib.util.spec_from_file_location(
+                name, root / f"{name}.py")
+            mod = importlib.util.module_from_spec(spec)
+            spec.loader.exec_module(mod)
+            buf = io.StringIO()
+            reset()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                out = mod.main(["--device", "cuda"])
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            now = read()
+            add(f"example_{name}", now)
+            lines = buf.getvalue().strip().splitlines()
+            print(f"[19d] {name}.py --device cuda: {dt:.1f} s, launches "
+                  f"{ {k: v for k, v in now.items() if v} }; its last "
+                  f"lines:")
+            for line in lines[-3:]:
+                print(f"[19d]   {line}")
+            if name == "torch_quickstart":
+                check(out["losses"][-1] < out["losses"][0],
+                      "quickstart: the loss falls")
+                check(now["rmsnorm"] > 0, "quickstart launched B4")
+            elif name == "torch_lqcd_cg":
+                check(max(out["err_full"], out["err_eo"]) <= TOL,
+                      "lqcd_cg: B1/B2 against their plain versions")
+                check(out["plain"].converged and out["eo"].converged
+                      and out["eo"].rel_residual <= 1e-6,
+                      "lqcd_cg: both solves converge")
+                check(now["dslash_eo_split"] > 0 and now["dslash_split"] > 0,
+                      "lqcd_cg launched B1 and B2")
+            elif name == "torch_green500_measurement":
+                check(out["hpl"].passed and now["dgemm"] > 0,
+                      "green500: the smoke Linpack passes through B3")
+            elif name == "torch_efficient_serving":
+                check(now["rmsnorm"] > 0, "efficient_serving launched B4")
+        set_default_cache(None)
+    finally:
+        shutil.rmtree(ckroot, ignore_errors=True)
+    for r in records:
+        r["launches_by_driver_path"] = {k: v.get(r["name"], 0)
+                                        for k, v in path.items()}
+    t19 = time.perf_counter() - t19
+    print(f"[19] phase 19 took {t19:.1f} s ({card})")
+    return t19
 
 
 def main() -> int:
@@ -2501,6 +2910,16 @@ def main() -> int:
                   f"{r[0]:.4f}, {r[1]:.4f}), {flops / ms / 1e9:.2f} "
                   f"TFLOP/s, {100 * b_ms / ms:.1f}% of the {b_ms:.4f} ms "
                   f"{b_by} bound ({card})")
+    # the plain version's and the library's times for the small product
+    # (TF32 off, as set in [1])
+    small_plain_ms = timed_ms(lambda: dgemm_ref(xs, ys), reps=200,
+                              warmup=20, host_paced_ok=True)
+    small_lib_ms = timed_ms(lambda: torch.matmul(xs, ys), reps=200,
+                            warmup=20)
+    print(f"[15] small product {SMALL_GEMM[0]} x {SMALL_GEMM[2]} @ "
+          f"{SMALL_GEMM[2]} x {SMALL_GEMM[1]} f32 (TF32 off): plain "
+          f"{small_plain_ms:.4f} ms, torch.matmul {small_lib_ms:.4f} ms "
+          f"({card})")
     del a22, l21, u12, a_big, out_s
     torch.cuda.empty_cache()
 
@@ -2584,6 +3003,8 @@ def main() -> int:
         "library_ms": gemm_rec["library_ms"],
         "small_product_ms": tile_ms["small product", 64],
         "small_product_ms_128x128": tile_ms["small product", 128],
+        "small_product_plain_ms": small_plain_ms,
+        "small_product_library_ms": small_lib_ms,
         "step0_ms_128x128_in_turns": tile_ms["step-0 update", 128]})
     set_default_cache(None)
     print(f"[15] phase 15 took {time.perf_counter() - t15:.1f} s ({card})")
@@ -2793,7 +3214,11 @@ def main() -> int:
     t18 = phase18(dev, card, records)
     check(t18 <= 300.0, "phase 18 takes at most 300 s")
 
-    print(f"[18] chip_smoke.py took {time.perf_counter() - t_start:.1f} s "
+    # 19. the training driver, its checkpoints and faults; the examples
+    t19 = phase19(dev, card, records)
+    check(t19 <= 200.0, "phase 19 takes at most 200 s")
+
+    print(f"[19] chip_smoke.py took {time.perf_counter() - t_start:.1f} s "
           f"in all")
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {

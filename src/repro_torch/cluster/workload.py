@@ -305,8 +305,8 @@ class TrainWorkload:
     """The ``launch.train`` entry point's energy/telemetry path behind the
     Workload API: roofline step cost + DVFS plan + per-step chip-power
     emission, priced at ``chip``.  ``execute`` is analytic (no steps
-    run), so schedulers can run it anywhere; the port's train step comes
-    with ROADMAP A6."""
+    run), so schedulers can run it anywhere; the steps themselves run in
+    :mod:`repro_torch.launch.train`, which prints this plan."""
 
     name: str = "train"
     arch: str = "olmo-1b"

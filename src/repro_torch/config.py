@@ -1,14 +1,16 @@
 """Configuration of the PyTorch/CUDA port.
 
 Copies of the JAX package's ``SolverConfig``, ``EnergyConfig``, model,
-shape, mesh and train dataclasses and architecture registry: the port
-keeps its own so that it imports nothing of the reference package.
+shape, mesh, train and run dataclasses, architecture registry and the
+launch scripts' CLI helpers: the port keeps its own so that it imports
+nothing of the reference package.
 """
 from __future__ import annotations
 
+import dataclasses
 import importlib
 from dataclasses import dataclass, replace
-from typing import Callable, Dict, List, Tuple
+from typing import Any, Callable, Dict, List, Tuple
 
 
 @dataclass(frozen=True)
@@ -326,6 +328,15 @@ class TrainConfig:
     seed: int = 0
 
 
+@dataclass(frozen=True)
+class RunConfig:
+    model: ModelConfig
+    shape: ShapeConfig
+    mesh: MeshConfig = SINGLE_POD_MESH
+    train: TrainConfig = TrainConfig()
+    energy: EnergyConfig = EnergyConfig()
+
+
 # ---------------------------------------------------------------------------
 # Architecture registry
 # ---------------------------------------------------------------------------
@@ -398,3 +409,26 @@ def smoke_config(arch_id: str) -> ModelConfig:
 def all_cells() -> List[Tuple[str, str]]:
     """All 40 (arch, shape) cells, including SKIP cells."""
     return [(a, s) for a in ARCH_IDS for s in SHAPES]
+
+
+# ---------------------------------------------------------------------------
+# Small CLI helper shared by launch scripts
+# ---------------------------------------------------------------------------
+
+def add_common_args(parser) -> None:
+    parser.add_argument("--arch", choices=ARCH_IDS, required=True)
+    parser.add_argument("--shape", choices=list(SHAPES), default="train_4k")
+    parser.add_argument("--multi-pod", action="store_true")
+    parser.add_argument("--smoke", action="store_true",
+                        help="use the reduced smoke config")
+
+
+def run_config_from_args(args) -> RunConfig:
+    entry = get_arch(args.arch)
+    model = entry.smoke() if args.smoke else entry.full()
+    mesh = MULTI_POD_MESH if args.multi_pod else SINGLE_POD_MESH
+    return RunConfig(model=model, shape=SHAPES[args.shape], mesh=mesh)
+
+
+def asdict(cfg: Any) -> Dict[str, Any]:
+    return dataclasses.asdict(cfg)

@@ -123,10 +123,30 @@ def params_from_numpy(tree: dict, cfg: ModelConfig, device="cuda") -> Model:
     return model
 
 
-def _stack(trees: list):
-    if isinstance(trees[0], dict):
-        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
-    return np.stack(trees)
+def param_names(model: Model) -> dict:
+    """The JAX package's ``init_params`` tree of the model's parameter
+    names (as ``model.named_parameters()`` names them): nested dicts whose
+    leaves are a name, or under a layer list (``layers``, ``enc_layers``)
+    a tuple of one name a layer, the JAX tree's leading layer axis."""
+    def walk(module: torch.nn.Module, prefix: str) -> dict:
+        out = {k: prefix + k
+               for k, _ in module.named_parameters(recurse=False)}
+        for k, child in module.named_children():
+            out[k] = walk(child, f"{prefix}{k}.")
+        return out
+
+    def stack(trees: list):
+        if isinstance(trees[0], dict):
+            return {k: stack([t[k] for t in trees]) for k in trees[0]}
+        return tuple(trees)
+
+    tree = {}
+    for name, child in model.named_children():
+        tree[name] = (stack([walk(layer, f"{name}.{i}.")
+                             for i, layer in enumerate(child)])
+                      if isinstance(child, torch.nn.ModuleList)
+                      else walk(child, f"{name}."))
+    return tree
 
 
 def params_to_numpy(model: Model, cfg: ModelConfig,
@@ -138,24 +158,17 @@ def params_to_numpy(model: Model, cfg: ModelConfig,
     gives the arrays in the parameters' places."""
     named = dict(model.named_parameters()) if tensors is None else tensors
 
-    def walk(module: torch.nn.Module, prefix: str) -> dict:
-        out = {k: to_numpy(named[prefix + k].float())
-               for k, _ in module.named_parameters(recurse=False)}
-        for k, child in module.named_children():
-            out[k] = walk(child, f"{prefix}{k}.")
-        return out
+    def arrays(tree):
+        if isinstance(tree, dict):
+            return {k: arrays(v) for k, v in tree.items()}
+        if isinstance(tree, tuple):
+            return np.stack([to_numpy(named[n].float()) for n in tree])
+        return to_numpy(named[tree].float())
 
     if len(model.layers) != cfg.n_layers:
         raise ValueError(f"the model has {len(model.layers)} layers, its "
                          f"configuration {cfg.n_layers}")
-    tree = {}
-    for name, child in model.named_children():
-        if isinstance(child, torch.nn.ModuleList):
-            tree[name] = _stack([walk(layer, f"{name}.{i}.")
-                                 for i, layer in enumerate(child)])
-        else:
-            tree[name] = walk(child, f"{name}.")
-    return tree
+    return arrays(param_names(model))
 
 
 # the decode cache's entries: those kept in float32, and those in the

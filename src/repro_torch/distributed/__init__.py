@@ -1,6 +1,11 @@
-"""Distributed substrate of the port: the lattice T-sharding mesh and the
-node-failure model."""
-from repro_torch.distributed.fault import WeibullFailureModel  # noqa: F401
+"""Distributed substrate of the port: the lattice T-sharding mesh, the
+training loop's fault bookkeeping and the node-failure model."""
+from repro_torch.distributed.fault import (  # noqa: F401
+    FaultPolicy,
+    FaultTolerantLoop,
+    StepHealth,
+    WeibullFailureModel,
+)
 from repro_torch.distributed.sharding import (  # noqa: F401
     LatticeMesh,
     gather_t_blocks,

@@ -1,18 +1,21 @@
-"""Node-failure statistics (a copy of the JAX package's
-``distributed/fault.py``, its failure model).
+"""Fault tolerance for the training loop and node-failure statistics (a
+copy of the JAX package's ``distributed/fault.py``; numpy only).
+
+:class:`FaultTolerantLoop` (with :class:`FaultPolicy` and
+:class:`StepHealth`) is the training driver's bookkeeping
+(:mod:`repro_torch.launch.train`): NaN/inf step detection, the rollback
+budget and the per-step wall-time EWMA behind the straggler report.
 
 :class:`WeibullFailureModel` is the per-node MTBF/repair renewal model
 the discrete-event cluster simulator (:mod:`repro_torch.cluster.sim`)
 draws node outages from, and the serve fleet
-(:mod:`repro_torch.serve.autoscale`) its replica kills.  The JAX
-module's training-loop helpers (``FaultTolerantLoop``, ``FaultPolicy``,
-``StepHealth``) come with the port's train step (ROADMAP A6).
+(:mod:`repro_torch.serve.autoscale`) its replica kills.
 """
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Iterator, List, Tuple
+from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 
@@ -78,3 +81,66 @@ class WeibullFailureModel:
             while t < horizon_s:
                 yield node, t, t + self.repair_s
                 t += self.repair_s + self.draw_uptime_s(rng)
+
+
+@dataclass
+class StepHealth:
+    step: int
+    wall_s: float
+    loss: float
+    ok: bool
+    reason: str = ""
+
+
+@dataclass
+class FaultPolicy:
+    max_retries: int = 2
+    nan_lr_cut: float = 0.5
+    straggler_ewma: float = 0.9
+    straggler_threshold: float = 1.25   # x median step time
+    checkpoint_every: int = 100
+
+
+class FaultTolerantLoop:
+    """Wraps a step callable with detection/rollback bookkeeping.
+
+    The step fn is pure (params, opt, batch) -> (params, opt, metrics); the
+    loop owns the last-good snapshot reference (a checkpoint step id).
+    """
+
+    def __init__(self, policy: FaultPolicy = FaultPolicy()):
+        self.policy = policy
+        self.ewma_wall: Optional[float] = None
+        self.history: List[StepHealth] = []
+        self.rollbacks = 0
+
+    def observe(self, step: int, wall_s: float, loss: float) -> StepHealth:
+        ok = math.isfinite(loss)
+        reason = "" if ok else "non-finite loss"
+        if self.ewma_wall is None:
+            self.ewma_wall = wall_s
+        else:
+            a = self.policy.straggler_ewma
+            self.ewma_wall = a * self.ewma_wall + (1 - a) * wall_s
+        h = StepHealth(step, wall_s, loss, ok, reason)
+        self.history.append(h)
+        return h
+
+    def is_straggling(self, wall_s: float) -> bool:
+        return (self.ewma_wall is not None
+                and wall_s > self.policy.straggler_threshold * self.ewma_wall)
+
+    def should_rollback(self, h: StepHealth) -> bool:
+        if h.ok:
+            return False
+        self.rollbacks += 1
+        return self.rollbacks <= self.policy.max_retries
+
+    def straggler_report(self) -> Dict[str, float]:
+        walls = np.asarray([h.wall_s for h in self.history] or [0.0])
+        return {
+            "median_step_s": float(np.median(walls)),
+            "p99_step_s": float(np.percentile(walls, 99)),
+            "straggler_ratio": float(np.percentile(walls, 99)
+                                     / max(np.median(walls), 1e-9)),
+        }

@@ -1,5 +1,6 @@
-"""The port's CUDA kernels, its solve, its LU and its serve path (mamba2
-and a smoke model of every other family) on the card.  Every test here is marked ``gpu`` and skips without a CUDA
+"""The port's CUDA kernels, its solve, its LU, its serve path (mamba2
+and a smoke model of every other family), its train step, training
+driver and checkpoints on the card.  Every test here is marked ``gpu`` and skips without a CUDA
 device; none imports JAX, so the file runs on a machine that has only
 PyTorch:
 
@@ -1077,3 +1078,60 @@ def test_train_step_on_the_card_matches_the_cpu(cuda, arch):
     for k, a in gc.items():
         scale = float(a.abs().max())
         assert float((gg[k].cpu() - a).abs().max()) <= 1e-3 * scale, k
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_checkpoint_manager_on_cuda_tensors(cuda, tmp_path, monkeypatch,
+                                            dtype):
+    """A tree of CUDA tensors saves in the JAX package's format (bfloat16
+    widened to float32 on disk, "bfloat16" in the manifest), restores on
+    the card in its dtype bit for bit, and the host snapshot is the
+    checkpoint's own: tensors written on the card between save() and
+    the writer's first leaf leave it unchanged."""
+    import json
+    import threading
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.checkpoint import manager as M
+    dt = getattr(torch, dtype)
+    g = torch.Generator(cuda).manual_seed(0)
+    tree = {"w": torch.randn(64, 33, generator=g, device=cuda).to(dt),
+            "opt": {"m": torch.randn(7, generator=g, device=cuda)}}
+    old = {"w": tree["w"].clone(), "m": tree["opt"]["m"].clone()}
+    go, to_numpy = threading.Event(), M._to_numpy
+    monkeypatch.setattr(M, "_to_numpy",
+                        lambda a: (go.wait(timeout=60), to_numpy(a))[1])
+    mgr = CheckpointManager(tmp_path)
+    mgr.save(3, tree)
+    tree["w"].mul_(-3)
+    tree["opt"]["m"].zero_()
+    go.set()
+    mgr.wait()
+    man = json.loads((tmp_path / "step_00000003" / "manifest.json")
+                     .read_text())
+    assert man["leaves"]["w"]["dtype"] == dtype
+    assert np.load(tmp_path / "step_00000003" /
+                   man["leaves"]["w"]["file"]).dtype == np.float32
+    got = mgr.restore(3, tree)
+    assert got["w"].device.type == "cuda" and got["w"].dtype == dt
+    assert torch.equal(got["w"], old["w"])
+    assert torch.equal(got["opt"]["m"], old["m"])
+
+
+def test_train_driver_on_the_card(cuda, tmp_path):
+    """Two steps of ``launch.train`` on the card (mamba2's smoke config):
+    finite losses, B4 and B5 launched, a checkpoint of step 0 that
+    restores bit for bit into a fresh model on the card."""
+    from repro_torch.config import smoke_config
+    from repro_torch.launch import train
+    rms, ssd = RMK.LAUNCHES["rmsnorm"], SSK.LAUNCHES["ssd_chunk"]
+    run = train.main(["--arch", "mamba2-370m", "--steps", "2", "--batch",
+                      "2", "--seq", "64", "--ckpt-every", "1",
+                      "--ckpt-dir", str(tmp_path), "--device", "cuda"])
+    assert RMK.LAUNCHES["rmsnorm"] > rms and SSK.LAUNCHES["ssd_chunk"] > ssd
+    assert all(np.isfinite(h.loss) for h in run.loop.history)
+    assert run.ckpt.steps() == [0, 1]
+    like = train.make_params(smoke_config("mamba2-370m"), 5, cuda)
+    got = run.ckpt.restore(1, like)
+    for (k, a), (_, b) in zip(run.params.named_parameters(),
+                              got.named_parameters()):
+        assert b.device.type == "cuda" and torch.equal(a, b), k

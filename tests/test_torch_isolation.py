@@ -1,5 +1,6 @@
 """The port stands alone: importing it pulls in neither JAX nor any module
-of the JAX package, and its sources (and ``chip_smoke.py``) import neither.
+of the JAX package, and its sources (with ``chip_smoke.py`` and the
+port's examples, ``examples/torch_*.py``) import neither.
 """
 import os
 import re
@@ -38,7 +39,8 @@ _IMPORT = re.compile(r"^\s*(?:from|import)\s+(jax|jaxlib|repro)(?:\.|\s|$)",
 
 
 @pytest.mark.parametrize("path", sorted(PORT.rglob("*.py"))
-                         + [ROOT / "chip_smoke.py"],
+                         + [ROOT / "chip_smoke.py"]
+                         + sorted((ROOT / "examples").glob("torch_*.py")),
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_sources_import_no_jax(path):
     assert not _IMPORT.findall(path.read_text())
