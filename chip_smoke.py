@@ -178,6 +178,23 @@ Phases (one line each, or a few):
      float32, 6 steps on the CPU and on the card from the same weights:
      losses and checkpoint leaves within [18d]'s tolerances; (d) the five
      examples (``examples/torch_*.py``) on the card.
+ 20. the sharded LM path on one controller, a (2, 2) ``LMMesh`` whose
+     four coordinates sit on the card: (a) hymba-1.5b at its published
+     widths, 2 x 4096 prompt tokens and 16 greedy steps on the mesh
+     (every attention layer sequence-sharded: 25 heads on a model axis
+     of 2) against ``mesh=None``: B4/B5 launches equal, the K/V
+     all-gathers' bytes what the shapes imply, every step's logits within
+     LM_TOL and the argmax equal wherever the top-2 gap is wider than
+     twice the step's largest difference; (b) its sharded train step (4 x
+     2048, 2 microbatches, remat "layer", 3 steps) against the one-device
+     step: launches equal and the structure's, losses within
+     SHARD_LOSS_TOL; then the shards saved and restored onto (1, 4) and
+     (1, 1) meshes, every shard bit-equal; (c) grok-1-314b cut to 2
+     layers at full width, 2 x 2048 through the "expert" plan and 4
+     serve-EP decode steps: walls, peaks, token slots dropped per
+     coordinate and the logits' distance from ``mesh=None``, reported;
+     (d) the qwen, grok and deepseek smoke configs' sharded prefill,
+     decode and train step on the CPU and the card.
 Every time is taken by ``repro_torch.kernels.timing``: the calls are
 queued behind a sleep kernel, and a kernel's or a library call's reading
 that the host paced is taken again behind a longer sleep (a plain
@@ -283,6 +300,22 @@ FAULT_RUN = (2, 2, 512, 8)     # [19b]: layers, batch, sequence, steps
 # past FaultPolicy's 2 retries (kept)
 FAULT_BAD = (0, 3, 5, 6)
 DRIVER_SMOKE = (("olmo-1b", "mamba2-370m"), 2, 45, 6)   # [19c]
+# phase 20: the sharded LM path on one controller
+SHARD_ARCH, SHARD_MESH = "hymba-1.5b", (2, 2)
+SHARD_SERVE = (2, 4096, 16)     # [20a]: batch, prompt, greedy steps
+SHARD_TRAIN = (4, 2048, 3)      # [20b]: batch, sequence, steps
+SHARD_TC = dict(remat="layer", microbatches=2, warmup_steps=1,
+                learning_rate=1e-4)
+# [20b]: the sharded step's losses within this share of the one-device
+# step's (TRAIN_LOSS_TOL's bfloat16 figure)
+SHARD_LOSS_TOL = 2e-2
+# [20c]: grok-1-314b's layers, batch, prompt, decode steps; the batch is
+# 2, not 1: the data axis of 2 splits it, as the reference's shard_map
+SHARD_GROK = (2, 2, 2048, 4)
+# [20d]: float32 smoke configs on the CPU and the card: logits within
+# this rtol and this share of the largest |logit|, losses relative
+SHARD_SMOKE = (("qwen1.5-32b", "grok-1-314b", "deepseek-v2-236b"), 4, 64)
+SHARD_SMOKE_TOL = 1e-4
 EXAMPLES = ("torch_quickstart", "torch_lqcd_cg",
             "torch_green500_measurement", "torch_autotune_sweep",
             "torch_efficient_serving")
@@ -1743,6 +1776,403 @@ def phase19(dev, card: str, records: list) -> float:
     t19 = time.perf_counter() - t19
     print(f"[19] phase 19 took {t19:.1f} s ({card})")
     return t19
+
+
+def phase20(dev, card: str, records: list) -> float:
+    """[20] The sharded LM path on one controller, a (2, 2) ``LMMesh`` of
+    four coordinates on the one card: (a) hymba-1.5b at its published
+    widths, prefill and greedy decode, every attention layer
+    sequence-sharded, against ``mesh=None``; (b) its sharded train step
+    against the one-device step, then a checkpoint of the shards restored
+    onto (1, 4) and (1, 1) meshes; (c) grok-1-314b cut to 2 layers at full
+    width through the "expert" plan and serve-EP decode, reported; (d)
+    three smoke configurations' sharded forward, decode and train step on
+    the CPU and the card.  Returns the phase's seconds."""
+    import copy
+    import dataclasses
+    import shutil
+    import statistics
+    import tempfile
+
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.config import (ShapeConfig, TrainConfig, full_config,
+                                    smoke_config)
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.kernels.rmsnorm import kernel as RK
+    from repro_torch.kernels.ssd_chunk import kernel as SK
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.launch.serve import make_batch
+    from repro_torch.models import init_params
+    from repro_torch.models import moe as TMO
+    from repro_torch.optim import adamw_init
+    from repro_torch.runtime.steps import (grow_decode_cache,
+                                           make_decode_step,
+                                           make_prefill_step,
+                                           make_train_step)
+
+    t20 = time.perf_counter()
+    torch.cuda.empty_cache()
+    path = {}                       # run -> {kernel: launches}
+    f32 = torch.float32
+
+    def counted(what, fn):
+        """fn() with B4 and B5 counted from 0 (and added to the run's)."""
+        RK.reset_launches()
+        SK.reset_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        now = {"rmsnorm": RK.LAUNCHES["rmsnorm"],
+               "ssd_chunk": SK.LAUNCHES["ssd_chunk"]}
+        run = path.setdefault(what, dict.fromkeys(now, 0))
+        for k, v in now.items():
+            run[k] += v
+        return out, now
+
+    def serve(cfg, params, batch, steps, mesh=None, feed=None, ep=False):
+        """Prefill then ``steps`` decode steps (greedy, or fed ``feed``):
+        (the logits (vocab tail cut, float32), the tokens, prefill s,
+        decode s)."""
+        mc = mesh.config if mesh is not None else None
+        prefill = make_prefill_step(cfg, mesh=mesh, mesh_cfg=mc)
+        decode = make_decode_step(cfg, mesh=mesh, mesh_cfg=mc,
+                                  moe_ep_data=ep)
+        V = cfg.vocab_size
+        B, S = batch["tokens"].shape
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = prefill(params, batch)
+        torch.cuda.synchronize()
+        t_pre = time.perf_counter() - t0
+        cache = grow_decode_cache(cfg, cache, B, S + steps)
+        out, toks = [logits[:, :V].float()], []
+        t0 = time.perf_counter()
+        for i in range(steps):
+            tok = (feed[:, i:i + 1] if feed is not None
+                   else torch.argmax(out[-1], -1)[:, None])
+            toks.append(tok)
+            logits, cache = decode(params, tok.to(logits.device,
+                                                  torch.int32), cache)
+            out.append(logits[:, :V].float())
+        torch.cuda.synchronize()
+        return out, torch.cat(toks, 1), t_pre, time.perf_counter() - t0
+
+    def gap2(logits):
+        top = torch.topk(logits, 2, -1).values
+        return top[:, 0] - top[:, 1]
+
+    def lm_batch(cfg, B, S, where):
+        b = SyntheticLMData(cfg.vocab_size, S, B, seed=SEED).batch(0)
+        return {k: torch.from_numpy(v).to(where) for k, v in b.items()}
+
+    def sharded_state(cfg, params, mesh):
+        """The parameters and zero AdamW moments placed under the train
+        specs (each moment made whole one leaf at a time), the step count
+        replicated."""
+        sh = SH.named_shardings(mesh, SH.param_pspecs(cfg, params,
+                                                      mesh.config))
+
+        def zeros():
+            return {k: SH.shard_tensor(torch.zeros(
+                t.shape, dtype=f32, device=t.device), sh[k], copy=True)
+                for k, t in params.named_parameters()}
+        where = next(params.parameters()).device
+        return SH.shard_tree(params, sh), {
+            "m": zeros(), "v": zeros(),
+            "step": SH.shard_tensor(torch.zeros((), dtype=torch.int32,
+                                                device=where),
+                                    SH.Sharding(mesh, SH.P()), copy=True)}
+
+    mesh = make_smoke_mesh(*SHARD_MESH)
+    check(mesh.distinct_devices == (torch.device("cuda", 0),)
+          and mesh.size() == 4,
+          "the (2, 2) mesh's four coordinates sit on cuda:0")
+
+    # 20a. hymba-1.5b at its published widths, prefill and decode
+    cfg = full_config(SHARD_ARCH)
+    B, S, G = SHARD_SERVE
+    check(cfg.n_heads % SHARD_MESH[1] != 0 and S % SHARD_MESH[1] == 0,
+          "hymba's 25 heads do not divide the model axis, its prompt does: "
+          "every attention layer takes the sequence-sharded path")
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(dev).manual_seed(SEED), dev)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.parameters())
+    batch = make_batch(cfg, B, S, dev)
+    print(f"[20a] {cfg.name}: {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads, window "
+          f"{cfg.sliding_window}, SSD chunk {cfg.ssm.chunk_size}, "
+          f"{n_params} parameters ({cfg.dtype}), initialised in "
+          f"{time.perf_counter() - t0:.2f} s; mesh {mesh.shape} "
+          f"{mesh.axis_names} on {mesh.distinct_devices} ({card})")
+    serve(cfg, params, {"tokens": batch["tokens"][:, :512]}, 2)   # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    (base, toks, pre0, dec0), n0 = counted(
+        "hymba_mesh_none", lambda: serve(cfg, params, batch, G))
+    peak0 = torch.cuda.max_memory_allocated() - held
+    sh = SH.named_shardings(mesh, SH.param_pspecs(cfg, params, mesh.config,
+                                                  mode="serve"))
+    sparams = SH.shard_tree(params, sh)
+    torch.cuda.synchronize()
+    mesh.traffic.clear()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    (shard, _, pre1, dec1), n1 = counted(
+        "hymba_mesh_2x2", lambda: serve(cfg, sparams, batch, G, mesh=mesh,
+                                        feed=toks))
+    peak1 = torch.cuda.max_memory_allocated() - held
+    traffic = dict(mesh.traffic)
+    check(n1 == n0, f"B4/B5 launches on the mesh {n1} equal mesh=None's "
+          f"{n0}: the shard bodies hold no kernel")
+    check(n0 == {"rmsnorm": rmsnorms_per_forward(cfg) * (1 + G),
+                 "ssd_chunk": ssd_chunks_per_prefill(cfg, S)},
+          f"mesh=None's launches {n0} are the structure's")
+    want_ag = (2 * cfg.n_layers * mesh.size() * (B // SHARD_MESH[0])
+               * (S // SHARD_MESH[1]) * cfg.n_kv_heads * cfg.d_head * 2)
+    check(traffic.get("all_gather", 0) == want_ag and set(traffic) ==
+          {"all_gather"}, f"K/V gathered in every layer: {traffic}, want "
+          f"all_gather {want_ag}")
+    diffs, held_tok, agree_tok = [], 0, 0
+    for a, b in zip(shard, base):
+        torch.testing.assert_close(a, b, **LM_TOL)
+        d = float((a - b).abs().max())
+        diffs.append(d)
+        wide = gap2(b) > 2 * d
+        held_tok += int(wide.sum())
+        agree_tok += int((torch.argmax(a, -1) == torch.argmax(b, -1))
+                         [wide].sum())
+    check(agree_tok == held_tok, f"the argmax agrees wherever mesh=None's "
+          f"top-2 gap exceeds twice the step's max|dlogits| "
+          f"({agree_tok} of {held_tok})")
+    placed = sum(t.numel() * t.element_size() for st in sparams.values()
+                 for t in {id(x): x for x in st.shards.values()}.values())
+    print(f"[20a] {B} x {S} prompt + {G} greedy steps: mesh=None prefill "
+          f"{pre0 * 1e3:.1f} ms, decode {dec0 / G * 1e3:.2f} ms/step, peak "
+          f"{peak0 / 1e9:.2f} GB; on the (2, 2) mesh (fed mesh=None's "
+          f"tokens) prefill {pre1 * 1e3:.1f} ms, decode "
+          f"{dec1 / G * 1e3:.2f} ms/step, peak {peak1 / 1e9:.2f} GB beyond "
+          f"the {placed / 1e9:.2f} GB of placed serve shards; collectives "
+          f"{traffic} bytes; "
+          f"max|dlogits| per step {[f'{d:.3g}' for d in diffs]} (held "
+          f"within rtol = atol = {LM_TOL['rtol']}); argmax equal at "
+          f"{agree_tok} of {held_tok} (row, step) pairs whose top-2 gap "
+          f"is wider than twice that step's max|dlogits|, of "
+          f"{B * (G + 1)}; B4 {n1['rmsnorm']}, B5 {n1['ssd_chunk']} "
+          f"launches on both; tokens {toks[0, :8].tolist()} ({card})")
+    del sparams, shard, base
+    torch.cuda.empty_cache()
+
+    # 20b. the sharded train step against the one-device step
+    Bt, St, N = SHARD_TRAIN
+    tc = TrainConfig(**SHARD_TC)
+    want = train_launches(cfg, tc, St)
+    tbatch = lm_batch(cfg, Bt, St, dev)
+    runs = {}
+    for kind in ("one_device", "mesh_2x2"):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        mesh.traffic.clear()
+        if kind == "one_device":
+            p = copy.deepcopy(params)
+            o = adamw_init(p)
+            b = tbatch
+            step = make_train_step(cfg, tc)
+        else:
+            p, o = sharded_state(cfg, params, mesh)
+            b = SH.shard_tree(tbatch, SH.named_shardings(
+                mesh, SH.batch_pspecs(cfg, tbatch, mesh.config)))
+            step = make_train_step(cfg, tc, mesh=mesh,
+                                   mesh_cfg=mesh.config)
+        losses, walls = [], []
+        for i in range(N):
+            t0 = time.perf_counter()
+            (p, o, m), now = counted(f"hymba_train_{kind}",
+                                     lambda: step(p, o, b))
+            walls.append(time.perf_counter() - t0)
+            losses.append(float(m["loss"]))
+            check(now == want, f"[20b] {kind} step {i}: launches {now}, "
+                  f"want {want}")
+        runs[kind] = dict(losses=losses, walls=walls,
+                          peak=torch.cuda.max_memory_allocated() - held,
+                          traffic=dict(mesh.traffic))
+        if kind == "one_device":
+            del p, o
+        else:
+            sp, so = p, o
+    for a, b in zip(runs["mesh_2x2"]["losses"], runs["one_device"]["losses"]):
+        check(math.isfinite(a) and abs(a - b) <= SHARD_LOSS_TOL * abs(b),
+              f"[20b] sharded loss {a} within {SHARD_LOSS_TOL} (relative) of "
+              f"the one-device step's {b}")
+    for kind, r in runs.items():
+        print(f"[20b] {cfg.name} train step, {kind}: {Bt} x {St} in "
+              f"{tc.microbatches} microbatches, remat {tc.remat!r}, lr "
+              f"{tc.learning_rate}: losses {r['losses']}, step walls "
+              f"{[round(w * 1e3, 1) for w in r['walls']]} ms (median "
+              f"{statistics.median(r['walls']) * 1e3:.1f}), peak "
+              f"{r['peak'] / 1e9:.2f} GB allocated beyond what the phase "
+              f"held, collectives {r['traffic']} bytes; B4 "
+              f"{want['rmsnorm']}, B5 {want['ssd_chunk']} launches a step "
+              f"({card})")
+
+    # 20b. the shards to disk, and back onto other meshes
+    ckdir = Path(tempfile.mkdtemp(prefix="chip_smoke_shard_"))
+    try:
+        mgr = CheckpointManager(ckdir)
+        t0 = time.perf_counter()
+        mgr.save(N, sp, blocking=True)
+        t_save = time.perf_counter() - t0
+        nbytes = sum(f.stat().st_size for f in ckdir.rglob("*.npy"))
+        whole = SH.unshard_tree(sp)
+        for shape in ((1, 4), (1, 1)):
+            other = SH.lm_mesh(shape, ("data", "model"))
+            osh = SH.named_shardings(other, SH.param_pspecs(
+                cfg, params, other.config))
+            t0 = time.perf_counter()
+            got = mgr.restore(N, sp, shardings=osh)
+            torch.cuda.synchronize()
+            t_restore = time.perf_counter() - t0
+            same = all(
+                got[k].mesh is other and got[k].dtype == whole[k].dtype
+                and torch.equal(SH.unshard_tensor(got[k]), whole[k])
+                and all(torch.equal(t, SH.shard_tensor(
+                    whole[k], osh[k]).shards[c])
+                        for c, t in got[k].shards.items())
+                for k in whole)
+            check(same, f"[20b] every leaf restored onto {shape} bit-equal")
+            print(f"[20b] the {len(whole)} parameter leaves saved from the "
+                  f"(2, 2) mesh ({nbytes / 1e9:.2f} GB on disk, save "
+                  f"{t_save:.2f} s) restored onto a {shape} mesh in "
+                  f"{t_restore:.2f} s, every shard bit-equal ({card})")
+            del got
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+    del sp, so, whole, params
+    torch.cuda.empty_cache()
+
+    # 20c. grok-1-314b cut to 2 layers at full width, reported
+    L, Bg, Sg, Gg = SHARD_GROK
+    cfg = dataclasses.replace(full_config("grok-1-314b"), n_layers=L)
+    params = init_params(cfg, torch.Generator(dev).manual_seed(SEED), dev)
+    batch = make_batch(cfg, Bg, Sg, dev)
+    drops = []
+    real_local = TMO._moe_local
+
+    def dropping(cfg_, x2d, router_w, wg, wu, wd, off, n_local):
+        """_moe_local, counting the (token, rank) pairs routed to this
+        coordinate's experts that its capacity drops."""
+        e = cfg_.moe
+        idx = torch.topk(torch.softmax(x2d.float() @ router_w.float(), -1),
+                         e.top_k, -1).indices
+        local = (idx >= off) & (idx < off + n_local)
+        flat = torch.where(local, idx - off, n_local).reshape(-1)
+        onehot = F.one_hot(flat, n_local + 1)
+        slot = torch.gather(torch.cumsum(onehot, 0) - onehot, 1,
+                            flat[:, None])[:, 0]
+        C = TMO._capacity(x2d.shape[0], cfg_, n_local)
+        drops.append(int((local.reshape(-1) & (slot >= C)).sum()))
+        return real_local(cfg_, x2d, router_w, wg, wu, wd, off, n_local)
+
+    grok = {}
+    TMO._moe_local = dropping
+    try:
+        for kind, m, ep in (("mesh_none", None, False),
+                            ("mesh_2x2", mesh, True)):
+            drops.clear()
+            mesh.traffic.clear()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated()
+            feed = grok.get("mesh_none", {}).get("toks")
+            (out, toks, pre, dec), n = counted(
+                f"grok_cut_{kind}", lambda: serve(cfg, params, batch, Gg,
+                                                  mesh=m, feed=feed, ep=ep))
+            grok[kind] = dict(out=out, toks=toks, pre=pre, dec=dec,
+                              drops=list(drops[:L * (mesh.size() if m
+                                                     else 1)]),
+                              peak=torch.cuda.max_memory_allocated() - held,
+                              traffic=dict(mesh.traffic), launches=n)
+    finally:
+        TMO._moe_local = real_local
+    check(grok["mesh_2x2"]["launches"] == grok["mesh_none"]["launches"],
+          "[20c] B4 launches on the mesh equal mesh=None's")
+    check(all(bool(torch.isfinite(t).all())
+              for r in grok.values() for t in r["out"]),
+          "[20c] grok's logits are finite on both")
+    dl = [float((a - b).abs().max()) for a, b in
+          zip(grok["mesh_2x2"]["out"], grok["mesh_none"]["out"])]
+    for (kind, r), ep in zip(grok.items(), (False, True)):
+        print(f"[20c] grok-1-314b cut to {L} layers at full width, "
+              f"{kind}: prefill {Bg} x {Sg} {r['pre'] * 1e3:.1f} ms"
+              f"{' (expert plan)' if ep else ''}, decode "
+              f"{r['dec'] / Gg * 1e3:.2f} ms/step"
+              f"{' (serve-EP, fed mesh=None tokens)' if ep else ''}, peak "
+              f"{r['peak'] / 1e9:.2f} GB; prefill token-slots "
+              f"dropped at capacity per layer x coordinate {r['drops']}; "
+              f"collectives {r['traffic']} bytes; B4 "
+              f"{r['launches']['rmsnorm']} ({card})")
+    print(f"[20c] max|dlogits| from mesh=None per step (prefill first; "
+          f"reported, not held: capacity is per shard) "
+          f"{[f'{d:.4g}' for d in dl]} ({card})")
+    del params, grok
+    torch.cuda.empty_cache()
+
+    # 20d. smoke configurations, CPU against card
+    archs, Bs, Ss = SHARD_SMOKE
+    for arch in archs:
+        cfg = dataclasses.replace(smoke_config(arch), dtype="float32")
+        p_cpu = init_params(cfg, torch.Generator().manual_seed(SEED), "cpu")
+        p_gpu = copy.deepcopy(p_cpu).to(dev)
+        res = {}
+        for where, p, m in (
+                ("cpu", p_cpu, SH.lm_mesh(SHARD_MESH, ("data", "model"),
+                                          devices=("cpu",))),
+                ("card", p_gpu, make_smoke_mesh(*SHARD_MESH))):
+            b = lm_batch(cfg, Bs, Ss, m.devices[0])
+            out, toks, _, _ = serve(cfg, p, {"tokens": b["tokens"]}, 2,
+                                    mesh=m, feed=res.get("cpu", {}).get(
+                                        "toks"),
+                                    ep=cfg.family == "moe")
+            sp, so = sharded_state(cfg, p, m)
+            step = make_train_step(cfg, TrainConfig(
+                remat="block", microbatches=2, warmup_steps=1,
+                learning_rate=1e-3), mesh=m, mesh_cfg=m.config)
+            _, _, met = step(sp, so, SH.shard_tree(b, SH.named_shardings(
+                m, SH.batch_pspecs(cfg, b, m.config))))
+            res[where] = dict(out=[t.cpu() for t in out], toks=toks.cpu(),
+                              loss=float(met["loss"]),
+                              gnorm=float(met["grad_norm"]),
+                              traffic=sum(m.traffic.values()))
+        c, g = res["cpu"], res["card"]
+        for a, b in zip(g["out"], c["out"]):
+            torch.testing.assert_close(
+                a, b, rtol=SHARD_SMOKE_TOL,
+                atol=SHARD_SMOKE_TOL * float(b.abs().max()))
+        check(abs(g["loss"] - c["loss"]) <= SHARD_SMOKE_TOL * abs(c["loss"])
+              and abs(g["gnorm"] - c["gnorm"]) <= 1e-3 * c["gnorm"]
+              and g["traffic"] == c["traffic"] > 0,
+              f"[20d] {arch}: the card's loss, grad norm and collective "
+              f"bytes are the CPU's")
+        dmax = max(float((a - b).abs().max())
+                   for a, b in zip(g["out"], c["out"]))
+        print(f"[20d] {arch} smoke (float32) on (2, 2) meshes: prefill + 2 "
+              f"decode steps{' (serve-EP)' if cfg.family == 'moe' else ''}"
+              f", max|dlogits| card - CPU {dmax:.3g}; one sharded train "
+              f"step (remat 'block', 2 microbatches) "
+              f"loss {g['loss']:.6f} / {c['loss']:.6f}, grad norm "
+              f"{g['gnorm']:.6f} / {c['gnorm']:.6f}; {g['traffic']} "
+              f"collective bytes on both ({card})")
+    for r in records:
+        r["launches_by_sharded_path"] = {k: v.get(r["name"], 0)
+                                         for k, v in path.items()}
+    t20 = time.perf_counter() - t20
+    print(f"[20] phase 20 took {t20:.1f} s ({card})")
+    return t20
+
 
 
 def main() -> int:
@@ -3218,7 +3648,11 @@ def main() -> int:
     t19 = phase19(dev, card, records)
     check(t19 <= 200.0, "phase 19 takes at most 200 s")
 
-    print(f"[19] chip_smoke.py took {time.perf_counter() - t_start:.1f} s "
+    # 20. the sharded LM path on one controller
+    t20 = phase20(dev, card, records)
+    check(t20 <= 200.0, "phase 20 takes at most 200 s")
+
+    print(f"[20] chip_smoke.py took {time.perf_counter() - t_start:.1f} s "
           f"in all")
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {

@@ -24,11 +24,11 @@ format (a port of its ``checkpoint/manager.py``).
     and ``restore_latest`` walks back to the newest retained step that
     loads cleanly, with a ``RuntimeWarning``;
   * background-write failures are re-raised from the next
-    ``wait()``/``save()``.
-
-The JAX manager's ``shardings=`` (resharding onto a device mesh) has no
-counterpart: the port has no LM mesh, and a ``shardings`` other than
-``None`` raises ``NotImplementedError``.
+    ``wait()``/``save()``;
+  * a ``ShardedTensor`` leaf (``distributed.sharding``) is saved whole,
+    and ``restore(..., shardings=)`` places each loaded leaf under its
+    ``Sharding`` on any ``LMMesh``, of any shape: the files do not record
+    the mesh that saved them.
 """
 from __future__ import annotations
 
@@ -45,6 +45,8 @@ import torch
 from torch import nn
 
 from repro_torch.convert import param_names
+from repro_torch.distributed.sharding import (ShardedTensor, shard_tensor,
+                                              unshard_tensor)
 
 
 class CheckpointError(RuntimeError):
@@ -55,10 +57,11 @@ class _Stacked(tuple):
     """One leaf of a model's layer axis: a tensor per layer, saved stacked."""
 
 
-def _module_tree(model: nn.Module) -> dict:
+def _module_tree(model: nn.Module, named: dict | None = None) -> dict:
     """The model as the JAX package's parameter tree: nested dicts of its
-    parameters, each layer list's parameters as ``_Stacked`` leaves."""
-    named = dict(model.named_parameters())
+    parameters (or of ``named``'s values, keyed by parameter name), each
+    layer list's as ``_Stacked`` leaves."""
+    named = dict(model.named_parameters()) if named is None else named
 
     def leaves(tree):
         if isinstance(tree, dict):
@@ -95,6 +98,9 @@ def _host_copy(leaf) -> Tuple[Any, str]:
         # stacked where the layers live (a new tensor), then one copy
         return (torch.stack([t.detach() for t in leaf]).to("cpu"),
                 _dtype_name(leaf[0].dtype))
+    if isinstance(leaf, ShardedTensor):
+        return (unshard_tensor(leaf, "cpu").detach().clone(),
+                _dtype_name(leaf.dtype))
     if isinstance(leaf, torch.Tensor):
         return leaf.detach().to("cpu", copy=True), _dtype_name(leaf.dtype)
     arr = np.array(leaf, copy=True)
@@ -122,9 +128,9 @@ class CheckpointManager:
         """Snapshot to host memory, then write asynchronously.
 
         ``tree`` is a port ``Model``, or nested dicts, lists and tuples of
-        tensors (any device) and numpy arrays.  Non-numpy-native dtypes
-        (bfloat16) are stored widened to fp32; the manifest keeps the
-        original dtype and restore() casts back."""
+        tensors (any device), ``ShardedTensor``\\ s and numpy arrays.
+        Non-numpy-native dtypes (bfloat16) are stored widened to fp32; the
+        manifest keeps the original dtype and restore() casts back."""
         host = [(name, *_host_copy(leaf)) for name, leaf in _flatten(tree)]
         self.wait()
 
@@ -190,13 +196,16 @@ class CheckpointManager:
         back as a new model on ``like``'s device), a numpy array as a
         numpy array.
 
+        ``shardings`` places the leaves on a mesh instead: a tree of
+        ``Sharding``\\ s in ``like``'s structure (``None`` leaves load as
+        above), or for a ``Model`` ``{parameter name: Sharding}``, which
+        gives ``{parameter name: ShardedTensor}``.  Each leaf is cast to
+        ``like``'s dtype and split on the mesh it names, whatever mesh
+        saved it.
+
         Raises :class:`CheckpointError` when the step directory is
         corrupt: unreadable manifest, a missing leaf, a truncated
         ``.npy``, or a leaf whose shape disagrees with the manifest."""
-        if shardings is not None:
-            raise NotImplementedError(
-                "restore(..., shardings=) reshards onto a device mesh; the "
-                "port has no LM mesh (ROADMAP A item 3)")
         d = self.dir / f"step_{step:08d}"
         try:
             manifest = json.loads((d / "manifest.json").read_text())
@@ -221,6 +230,8 @@ class CheckpointManager:
                     f"step {step}: leaf {name!r} shape {list(arr.shape)} != "
                     f"manifest {meta['shape']} (truncated write?)")
             loaded[name] = arr
+        if shardings is not None:
+            return _place(like, loaded, shardings)
         return _unflatten(like, loaded)
 
     def restore_latest(self, like: Any, shardings: Any = None,
@@ -241,11 +252,45 @@ class CheckpointManager:
         return None, None
 
 
+def _placed(arr: np.ndarray, dtype: torch.dtype, sharding) -> ShardedTensor:
+    """``arr`` cast to ``dtype`` and split under ``sharding``."""
+    t = torch.from_numpy(np.ascontiguousarray(arr)).to(dtype)
+    return shard_tensor(t, sharding, copy=True)
+
+
 def _cast(arr: np.ndarray, like):
+    if isinstance(like, ShardedTensor):
+        return _placed(arr, like.dtype, like.sharding)
     if isinstance(like, torch.Tensor):
         return torch.from_numpy(np.ascontiguousarray(arr)).to(
             like.device, like.dtype)
     return np.asarray(arr).astype(np.asarray(like).dtype)
+
+
+def _place(like: Any, loaded: dict, shardings: Any,
+           prefix: str = "") -> Any:
+    """``_unflatten`` with each leaf that has a ``Sharding`` in
+    ``shardings`` split onto its mesh."""
+    if isinstance(like, nn.Module):
+        params = dict(like.named_parameters())
+        names = _module_tree(like, {n: n for n in params})
+        out = {}
+        for name, leaf in _flatten(names):
+            stacked = isinstance(leaf, _Stacked)
+            for i, pname in enumerate(leaf if stacked else (leaf,)):
+                arr = loaded[name][i] if stacked else loaded[name]
+                out[pname] = _placed(arr, params[pname].dtype,
+                                     shardings[pname])
+        return out
+    if isinstance(like, dict):
+        return {k: _place(like[k], loaded, shardings[k], f"{prefix}{k}/")
+                for k in like}
+    if isinstance(like, (list, tuple)):
+        return type(like)(_place(v, loaded, shardings[i], f"{prefix}{i}/")
+                          for i, v in enumerate(like))
+    if shardings is None:
+        return _unflatten(like, loaded, prefix)
+    return _placed(loaded[prefix[:-1]], like.dtype, shardings)
 
 
 def _unflatten(like: Any, loaded: dict, prefix: str = "") -> Any:

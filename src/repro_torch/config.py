@@ -276,8 +276,10 @@ def shape_applicable(model: ModelConfig,
 
 @dataclass(frozen=True)
 class MeshConfig:
-    """A logical device mesh, as the analytic roofline divides work over
-    it (the port runs no mesh of its own: ROADMAP A6)."""
+    """A logical device mesh: the shape the sharding rules
+    (``distributed.sharding``) and the analytic roofline divide work
+    over.  ``launch.mesh.make_mesh_from_config`` builds the
+    single-controller ``LMMesh`` that runs it."""
 
     shape: Tuple[int, ...] = (16, 16)
     axis_names: Tuple[str, ...] = ("data", "model")

@@ -1,5 +1,7 @@
-"""Distributed substrate of the port: the lattice T-sharding mesh, the
-training loop's fault bookkeeping and the node-failure model."""
+"""Distributed substrate of the port: the LM sharding rules, meshes and
+placement (``sharding``), the collectives over a mesh's coordinates
+(``collectives``), the lattice T-sharding mesh, the training loop's
+fault bookkeeping and the node-failure model."""
 from repro_torch.distributed.fault import (  # noqa: F401
     FaultPolicy,
     FaultTolerantLoop,

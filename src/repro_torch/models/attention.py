@@ -3,8 +3,7 @@ single-token decode against a KV cache (bfloat16 or int8), and
 DeepSeek-V2 MLA (multi-head latent attention) with matrix absorption for
 decode.
 
-Counterpart of the JAX package's ``repro/models/attention.py``, less its
-sequence-sharded attention (ROADMAP A6, the sharded pieces).  Attention is
+Counterpart of the JAX package's ``repro/models/attention.py``.  Attention is
 plain PyTorch on both devices, as the reference's is plain jnp: scores,
 softmax statistics and the weighted sums in float32 from the inputs, the
 reference's own formulation.  Two schedules exist:
@@ -20,6 +19,11 @@ independent, so each row sees the same updates in the same order as in
 the reference; the triangular schedule starts kv chunk j at q row
 ``j * q_chunk``.
 
+Over an ``LMMesh`` whose model axis the heads do not divide (whisper 12,
+qwen 40, hymba 25 heads), causal ``gqa_forward`` splits the sequence
+instead (``_seq_sharded_attention``): each model coordinate attends with
+its query rows to the K/V gathered over the model axis.
+
 Decode writes the new token's K/V into the cache tensors it is given, in
 place, and returns them; ``transformer.forward_decode`` hands it copies.
 """
@@ -31,6 +35,9 @@ import torch
 from torch import nn
 
 from repro_torch.config import ModelConfig
+from repro_torch.distributed.collectives import all_gather
+from repro_torch.distributed.sharding import (P, Sharding, ShardedTensor,
+                                              shard_tensor, unshard_tensor)
 from repro_torch.kernels.rmsnorm import rmsnorm
 from repro_torch.models.layers import apply_rope, frozen, normal, param_dtype
 
@@ -230,14 +237,36 @@ def _project_qkv(cfg: ModelConfig, p: Attention, x: torch.Tensor,
     return q, k, v
 
 
+def _seq_sharded_attention(q, k, v, *, mesh, data_axes, causal: bool,
+                           window: int, model_axis: str = "model"):
+    """Sequence-parallel attention: q, k and v (B, S, ·, dh) split over
+    ``data_axes`` on the batch and over the model axis on the sequence;
+    each coordinate gathers K/V over the model axis and attends with its
+    query rows, the causal mask and the window at its sequence offset.
+    Returns the whole (B, S, H, dh) output."""
+    sharding = Sharding(mesh, P(tuple(data_axes), model_axis, None, None))
+    ql, kl, vl = (shard_tensor(t, sharding).shards for t in (q, k, v))
+    kf = all_gather(mesh, kl, model_axis, 1)
+    vf = all_gather(mesh, vl, model_axis, 1)
+    out = {}
+    for c in mesh.coords():
+        off = mesh.index(c, model_axis) * ql[c].shape[1]
+        out[c] = blockwise_attention(ql[c], kf[c], vf[c], causal=causal,
+                                     q_offset=off, window=window)
+    return unshard_tensor(ShardedTensor.from_shards(sharding, out), q.device)
+
+
 def gqa_forward(cfg: ModelConfig, p: Attention, x: torch.Tensor, *,
                 positions: torch.Tensor | None, causal: bool = True,
                 block_skip: bool = False,
-                kv_override: tuple[torch.Tensor, torch.Tensor] | None = None):
+                kv_override: tuple[torch.Tensor, torch.Tensor] | None = None,
+                mesh=None, data_axes=("data",)):
     """Full-sequence attention.  Returns (out, (k, v)) for the cache.
 
     ``kv_override`` supplies external K/V (cross-attention); the query is
-    then projected without RoPE."""
+    then projected without RoPE.  With ``mesh``, causal attention whose
+    heads do not divide the model axis, and whose sequence does, runs
+    sequence-sharded (the reference's rule)."""
     if kv_override is not None:
         k, v = kv_override
         q = _proj(x, p.wq)
@@ -245,9 +274,19 @@ def gqa_forward(cfg: ModelConfig, p: Attention, x: torch.Tensor, *,
             q = q + p.bq
     else:
         q, k, v = _project_qkv(cfg, p, x, positions)
-    o = blockwise_attention(q, k, v, causal=causal,
-                            window=cfg.sliding_window,
-                            block_skip=block_skip)
+    use_seq_shard = False
+    if mesh is not None and "model" in mesh.axis_names:
+        tp = mesh.size("model")
+        seq_ok = (q.shape[1] % tp == 0 and k.shape[1] % tp == 0
+                  and q.shape[1] == k.shape[1])
+        use_seq_shard = (cfg.n_heads % tp != 0) and seq_ok and causal
+    if use_seq_shard:
+        o = _seq_sharded_attention(q, k, v, mesh=mesh, data_axes=data_axes,
+                                   causal=causal, window=cfg.sliding_window)
+    else:
+        o = blockwise_attention(q, k, v, causal=causal,
+                                window=cfg.sliding_window,
+                                block_skip=block_skip)
     return _out(o, p.wo), (k, v)
 
 

@@ -1,13 +1,24 @@
-"""Mixture-of-Experts: top-k routing with capacity-based scatter dispatch.
+"""Mixture-of-Experts: top-k routing with capacity-based scatter dispatch,
+and expert parallelism over an ``LMMesh``.
 
-Counterpart of the JAX package's ``repro/models/moe.py`` on one device
-(its ``mesh is None`` path, plus the shared experts).  Dispatch scatters
-each kept (token, rank) pair into an (E + 1, C, D) buffer of expert slots
-instead of building the (tokens, E, C) one-hot dispatch tensor; the last
-row collects the pairs dropped at capacity and is discarded.  The same
-code serves prefill and decode (S = 1): only the token count changes.
-The expert-parallel paths over a mesh (``_ep_data_forward``, the sharding
-plan) wait with the other sharded pieces (ROADMAP A6).
+Counterpart of the JAX package's ``repro/models/moe.py``.  Dispatch
+scatters each kept (token, rank) pair into an (E + 1, C, D) buffer of
+expert slots instead of building the (tokens, E, C) one-hot dispatch
+tensor; the last row collects the pairs dropped at capacity and is
+discarded.  The same code serves train, prefill and decode (S = 1): only
+the token count changes.
+
+Over a mesh, the reference's ``shard_map`` bodies run once per mesh
+coordinate, on that coordinate's blocks of the tokens and the expert
+weights and on its device, through the same ``_moe_local``; where the
+reference calls ``all_gather``, ``psum``, ``psum_scatter`` and ``pmean``
+the port calls ``distributed.collectives``.  Expert weights are split
+over the model axis on the expert dim when ``E % model_size == 0``
+(deepseek: 160 / 16, plan "expert"), otherwise on the expert-FFN dim
+(grok: 8 experts, plan "ffn"); their FSDP (data/pod) block of d_model is
+gathered inside the body.  Capacity is counted per coordinate from its
+own tokens, so the tokens dropped differ from ``mesh=None``'s, as in the
+reference.
 """
 from __future__ import annotations
 
@@ -18,11 +29,20 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.config import ModelConfig
+from repro_torch.distributed.collectives import (all_gather, pmean, psum,
+                                                 psum_scatter)
+from repro_torch.distributed.sharding import (P, Sharding, ShardedTensor,
+                                              shard_tensor, unshard_tensor)
 from repro_torch.models.layers import frozen, gelu, normal, param_dtype
 
 # the largest float32 copy of one expert weight stack that _expert_ffn
 # makes at a time (its experts are upcast in chunks below this size)
 EXPERT_CHUNK_BYTES = 1 << 30
+
+
+def moe_sharding_plan(cfg: ModelConfig, model_size: int) -> str:
+    """'expert': shard the expert dim; 'ffn': shard the expert-FFN dim."""
+    return "expert" if cfg.moe.n_experts % model_size == 0 else "ffn"
 
 
 class MoE(nn.Module):
@@ -143,13 +163,121 @@ def _moe_local(cfg: ModelConfig, x2d: torch.Tensor, router_w, wg, wu, wd,
     return y, aux
 
 
-def moe_forward(cfg: ModelConfig, p: MoE, x: torch.Tensor):
-    """x: (B, S, D) -> (out (B, S, D), aux_loss scalar)."""
+def _blocks(mesh, t: torch.Tensor, *spec) -> dict:
+    """``t``'s block at each coordinate under ``spec`` (a body's input)."""
+    return shard_tensor(t, Sharding(mesh, P(*spec))).shards
+
+
+def _whole(mesh, ys: dict, device, *spec) -> torch.Tensor:
+    """The body's per-coordinate outputs as the tensor they make up under
+    ``spec``, on ``device``."""
+    return unshard_tensor(
+        ShardedTensor.from_shards(Sharding(mesh, P(*spec)), ys), device)
+
+
+def _ep_data_forward(cfg: ModelConfig, p: MoE, x: torch.Tensor, mesh,
+                     data_axes, model_axis):
+    """Serve-EP: experts split over the DATA axes (E % dp == 0), the FFN
+    dim over the model axis, so the weights stay resident and no step
+    gathers them.  Each coordinate gathers the tokens of every data
+    coordinate, runs its local experts over all of them, and the outputs
+    reduce-scatter back to the tokens' owners."""
     e = cfg.moe
     D = x.shape[-1]
-    y, aux = _moe_local(cfg, x.reshape(-1, D), p.router, p.w_gate, p.w_up,
-                        p.w_down, 0, e.n_experts)
-    out = y.reshape(x.shape).to(x.dtype)
+    dp_size = mesh.size(tuple(data_axes))
+    n_local = e.n_experts // dp_size
+    xl = _blocks(mesh, x, data_axes, None, None)
+    router = _blocks(mesh, p.router)
+    wg = _blocks(mesh, p.w_gate, data_axes, None, model_axis)   # (E, D, F)
+    wu = _blocks(mesh, p.w_up, data_axes, None, model_axis)
+    wd = _blocks(mesh, p.w_down, data_axes, model_axis, None)   # (E, F, D)
+    # gather all tokens over the data axes
+    xa = xl
+    for a in reversed(data_axes):
+        xa = all_gather(mesh, xa, a, 0)
+    ys, auxs = {}, {}
+    for c in mesh.coords():
+        off, mult = 0, 1
+        for a in reversed(data_axes):
+            off += mesh.index(c, a) * mult * n_local
+            mult *= mesh.size(a)
+        y, auxs[c] = _moe_local(cfg, xa[c].reshape(-1, D), router[c], wg[c],
+                                wu[c], wd[c], off, n_local)
+        ys[c] = y.to(xl[c].dtype)
+    # partial sums over model, then the tokens back to their owners
+    ys = psum(mesh, ys, model_axis)
+    ys = {c: y.reshape(xa[c].shape) for c, y in ys.items()}
+    for a in data_axes:
+        ys = psum_scatter(mesh, ys, a, 0)
+    auxs = pmean(mesh, auxs, model_axis)
+    for a in data_axes:
+        auxs = pmean(mesh, auxs, a)
+    return (_whole(mesh, ys, x.device, data_axes, None, None),
+            auxs[mesh.coords()[0]].to(x.device))
+
+
+def _sharded_forward(cfg: ModelConfig, p: MoE, x: torch.Tensor, mesh,
+                     data_axes, model_axis, fsdp: bool):
+    """The "expert" or "ffn" plan (``moe_sharding_plan``)."""
+    e = cfg.moe
+    D = x.shape[-1]
+    msize = mesh.size(model_axis)
+    plan = moe_sharding_plan(cfg, msize)
+    wdp = data_axes if fsdp else None
+    if plan == "expert":
+        n_local = e.n_experts // msize
+        specs = ((model_axis, wdp, None), (model_axis, wdp, None),
+                 (model_axis, None, wdp))
+    else:
+        n_local = e.n_experts
+        specs = ((None, wdp, model_axis), (None, wdp, model_axis),
+                 (None, model_axis, wdp))
+    xl = _blocks(mesh, x, data_axes, None, None)
+    router = _blocks(mesh, p.router)
+    wg, wu, wd = (_blocks(mesh, w, *sp) for w, sp in
+                  zip((p.w_gate, p.w_up, p.w_down), specs))
+    if fsdp:
+        # gather the FSDP (data) block of the expert weights
+        for a in reversed(data_axes):
+            wg = all_gather(mesh, wg, a, 1)
+            wu = all_gather(mesh, wu, a, 1)
+            wd = all_gather(mesh, wd, a, 2)
+    ys, auxs = {}, {}
+    for c in mesh.coords():
+        off = mesh.index(c, model_axis) * n_local if plan == "expert" else 0
+        y, auxs[c] = _moe_local(cfg, xl[c].reshape(-1, D), router[c], wg[c],
+                                wu[c], wd[c], off, n_local)
+        # bf16 on the wire, as in the reference
+        ys[c] = y.to(xl[c].dtype)
+    ys = psum(mesh, ys, model_axis)
+    auxs = pmean(mesh, auxs, model_axis)
+    for a in data_axes:
+        auxs = pmean(mesh, auxs, a)
+    ys = {c: y.reshape(xl[c].shape) for c, y in ys.items()}
+    return (_whole(mesh, ys, x.device, data_axes, None, None),
+            auxs[mesh.coords()[0]].to(x.device))
+
+
+def moe_forward(cfg: ModelConfig, p: MoE, x: torch.Tensor, *, mesh=None,
+                data_axes=("data",), model_axis: str = "model",
+                fsdp: bool = True, ep_data: bool = False):
+    """x: (B, S, D) -> (out (B, S, D), aux_loss scalar).
+
+    With ``mesh`` (an ``LMMesh``), the routed experts run per coordinate
+    under the sharding plan, or under serve-EP with ``ep_data``; the
+    tokens split over ``data_axes``, which must divide B."""
+    e = cfg.moe
+    D = x.shape[-1]
+    if mesh is None:
+        y, aux = _moe_local(cfg, x.reshape(-1, D), p.router, p.w_gate,
+                            p.w_up, p.w_down, 0, e.n_experts)
+        out = y.reshape(x.shape).to(x.dtype)
+    elif ep_data:
+        out, aux = _ep_data_forward(cfg, p, x, mesh, tuple(data_axes),
+                                    model_axis)
+    else:
+        out, aux = _sharded_forward(cfg, p, x, mesh, tuple(data_axes),
+                                    model_axis, fsdp)
     if e.n_shared_experts:
         g = torch.matmul(x, p.shared_gate)
         u = torch.matmul(x, p.shared_up)

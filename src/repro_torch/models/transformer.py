@@ -3,9 +3,9 @@ qwen, minitron, olmo), MoE decoders (grok, deepseek with MLA), pure SSM
 (mamba2), hybrid attention ∥ SSM (hymba), encoder-decoder (whisper) and
 VLM prefix models (llava).
 
-Counterpart of the JAX package's ``repro/models/transformer.py``, less
-its mesh constraints.  Layers run in a Python loop where the JAX package
-scans over stacked layer parameters, and remat is
+Counterpart of the JAX package's ``repro/models/transformer.py``.  Layers
+run in a Python loop where the JAX package scans over stacked layer
+parameters, and remat is
 ``torch.utils.checkpoint`` where the JAX package has ``jax.checkpoint``
 (``_remat``); the decode cache keeps the JAX package's
 stacked keys and layouts, so the two packages' caches compare directly:
@@ -19,6 +19,13 @@ stacked keys and layouts, so the two packages' caches compare directly:
   pos:      int32 scalar
 
 With a sliding window, k and v hold a ring buffer of ``window`` slots.
+
+``mesh=`` (an ``LMMesh``) runs the reference's explicit per-shard code:
+sequence-sharded attention (``attention._seq_sharded_attention``) and the
+MoE plans (``moe.moe_forward``).  Everything between those bodies is
+placed by GSPMD in the reference and computes the numbers of one device;
+the port computes it on whole tensors on the controller's device, and
+``_constrain`` only checks its spec against the mesh.
 """
 from __future__ import annotations
 
@@ -31,6 +38,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.config import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.distributed.sharding import P, Sharding
 from repro_torch.models import attention as attn
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.frontend import (Frontend, apply_frontend,
@@ -41,6 +49,16 @@ from repro_torch.models.layers import (MLP, Embedding, LMHead, Norm,
                                        init_embedding, init_lm_head, init_mlp,
                                        init_norm, lm_head_logits, param_dtype)
 from repro_torch.models.moe import MoE, init_moe, moe_forward
+
+
+def _constrain(x: torch.Tensor, mesh, spec: P) -> torch.Tensor:
+    """Anchor an activation's sharding (a no-op outside a mesh).  The
+    port computes activations whole, so this checks that ``spec`` names
+    axes of ``mesh`` and fits ``x``'s rank, places nothing, and returns
+    ``x``; as under GSPMD, a dim need not divide its axes."""
+    if mesh is not None:
+        Sharding(mesh, spec).block(mesh.coords()[0], x.dim())
+    return x
 
 
 class DecoderLayer(nn.Module):
@@ -155,7 +173,8 @@ def init_params(cfg: ModelConfig, generator: torch.Generator | None = None,
 
 def _decoder_layer_fwd(cfg: ModelConfig, p: DecoderLayer, x, positions, *,
                        block_skip: bool, enc_states=None,
-                       want_cache: bool):
+                       want_cache: bool, mesh=None, data_axes=("data",),
+                       moe_fsdp: bool = True):
     """Returns (x, cache dict or None, aux)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     cache = {}
@@ -166,7 +185,8 @@ def _decoder_layer_fwd(cfg: ModelConfig, p: DecoderLayer, x, positions, *,
         cache["ssm"], cache["conv"] = hT, conv
     elif cfg.family == "hybrid":
         a_out, (k, v) = attn.gqa_forward(cfg, p.attn, h, positions=positions,
-                                         block_skip=block_skip)
+                                         block_skip=block_skip, mesh=mesh,
+                                         data_axes=data_axes)
         s_out, (hT, conv) = ssm_mod.ssm_forward(cfg, p.ssm, h)
         out = (a_out + s_out) * 0.5
         cache.update(k=k, v=v, ssm=hT, conv=conv)
@@ -177,7 +197,8 @@ def _decoder_layer_fwd(cfg: ModelConfig, p: DecoderLayer, x, positions, *,
         cache["ckv"], cache["krope"] = ckv, krope
     else:
         out, (k, v) = attn.gqa_forward(cfg, p.attn, h, positions=positions,
-                                       block_skip=block_skip)
+                                       block_skip=block_skip, mesh=mesh,
+                                       data_axes=data_axes)
         cache["k"], cache["v"] = k, v
     x = x + out
 
@@ -191,7 +212,8 @@ def _decoder_layer_fwd(cfg: ModelConfig, p: DecoderLayer, x, positions, *,
 
     if cfg.family == "moe":
         h2 = apply_norm(cfg, p.norm2, x)
-        out2, aux = moe_forward(cfg, p.moe, h2)
+        out2, aux = moe_forward(cfg, p.moe, h2, mesh=mesh,
+                                data_axes=data_axes, fsdp=moe_fsdp)
         x = x + out2
     elif cfg.d_ff > 0:
         h2 = apply_norm(cfg, p.norm2, x)
@@ -221,13 +243,16 @@ def _remat(fn, *args):
 
 
 def _run_encoder(cfg: ModelConfig, params: Model, frame_embeds, *,
-                 remat: bool = False):
+                 remat: bool = False, mesh=None, data_axes=("data",)):
     x = apply_frontend(cfg, params.frontend, frame_embeds)
     pe = sinusoidal_positions(x.shape[1], cfg.d_model, x.device).to(x.dtype)
     x = x + pe[None]
+    act_spec = P(tuple(data_axes), None, None)
+    x = _constrain(x, mesh, act_spec)
     for layer in params.enc_layers:
         x = (_remat(_encoder_layer_fwd, cfg, layer, x) if remat
              else _encoder_layer_fwd(cfg, layer, x))
+        x = _constrain(x, mesh, act_spec)
     return apply_norm(cfg, params.enc_final_norm, x)
 
 
@@ -253,7 +278,8 @@ def block_size(n_layers: int) -> int:
 
 def forward_hidden(cfg: ModelConfig, params: Model, batch, *,
                    block_skip: bool = False, want_cache: bool = False,
-                   remat: bool = False, remat_policy: str = "layer"):
+                   remat: bool = False, remat_policy: str = "layer",
+                   mesh=None, data_axes=("data",), moe_fsdp: bool = True):
     """Embed + all decoder layers + the final norm.  Returns (hidden (B,
     S, D), the cache dict of layer-stacked entries or None, the summed MoE
     aux loss, the encoder states or None).
@@ -268,14 +294,18 @@ def forward_hidden(cfg: ModelConfig, params: Model, batch, *,
     enc_states = None
     if cfg.family == "encdec":
         enc_states = _run_encoder(cfg, params, batch["frame_embeds"],
-                                  remat=remat)
+                                  remat=remat, mesh=mesh,
+                                  data_axes=data_axes)
     x, positions = _embed_inputs(cfg, params, batch)
+    act_spec = P(tuple(data_axes), None, None)
+    x = _constrain(x, mesh, act_spec)
 
     def layer_fwd(layer, x, aux):
         x, cache, aux_l = _decoder_layer_fwd(
             cfg, layer, x, positions, block_skip=block_skip,
-            enc_states=enc_states, want_cache=want_cache)
-        return x, aux + aux_l, cache
+            enc_states=enc_states, want_cache=want_cache, mesh=mesh,
+            data_axes=data_axes, moe_fsdp=moe_fsdp)
+        return _constrain(x, mesh, act_spec), aux + aux_l, cache
 
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     layers = list(params.layers)
@@ -307,10 +337,11 @@ def forward_hidden(cfg: ModelConfig, params: Model, batch, *,
 # ---------------------------------------------------------------------------
 
 def _chunk_nll(cfg: ModelConfig, params: Model, h: torch.Tensor,
-               labels: torch.Tensor):
+               labels: torch.Tensor, mesh=None, data_axes=("data",)):
     """(sum of the valid labels' negative log-likelihoods, their count)
     over one chunk, from float32 logits."""
     logits = lm_head_logits(cfg, params.embed, params.lm_head, h).float()
+    logits = _constrain(logits, mesh, P(tuple(data_axes), None, "model"))
     lse = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1,
                         torch.clamp_min(labels, 0).long()[..., None])[..., 0]
@@ -319,7 +350,8 @@ def _chunk_nll(cfg: ModelConfig, params: Model, h: torch.Tensor,
 
 
 def chunked_lm_loss(cfg: ModelConfig, params: Model, hidden: torch.Tensor,
-                    labels: torch.Tensor, chunk: int = 1024) -> torch.Tensor:
+                    labels: torch.Tensor, chunk: int = 1024, mesh=None,
+                    data_axes=("data",)) -> torch.Tensor:
     """Cross-entropy without materializing the full (B, S, V) float32
     logits: chunks of ``chunk`` positions (the last padded with label
     -1), the mean over the valid labels.  Each chunk's loss is
@@ -337,23 +369,26 @@ def chunked_lm_loss(cfg: ModelConfig, params: Model, hidden: torch.Tensor,
     for i in range(n):
         sl = slice(i * chunk, (i + 1) * chunk)
         nll, count = _remat(_chunk_nll, cfg, params, hidden[:, sl],
-                            labels[:, sl])
+                            labels[:, sl], mesh, data_axes)
         tot, cnt = tot + nll, cnt + count
     return tot / torch.clamp_min(cnt, 1.0)
 
 
 def forward_train_loss(cfg: ModelConfig, params: Model, batch, *,
                        remat: bool = True, block_skip: bool = False,
-                       remat_policy: str = "layer"):
+                       remat_policy: str = "layer", mesh=None,
+                       data_axes=("data",)):
     """The training loss: the LM loss over ``batch["labels"]`` plus the
     MoE aux loss.  Returns (loss, {"lm_loss", "aux_loss"})."""
     hidden, _, aux, _ = forward_hidden(cfg, params, batch, remat=remat,
                                        block_skip=block_skip,
-                                       remat_policy=remat_policy)
+                                       remat_policy=remat_policy, mesh=mesh,
+                                       data_axes=data_axes)
     if cfg.family == "vlm":
         # loss on text tokens only; hidden includes the patch prefix
         hidden = hidden[:, batch["patch_embeds"].shape[1]:]
-    loss = chunked_lm_loss(cfg, params, hidden, batch["labels"])
+    loss = chunked_lm_loss(cfg, params, hidden, batch["labels"], mesh=mesh,
+                           data_axes=data_axes)
     return loss + aux, {"lm_loss": loss, "aux_loss": aux}
 
 
@@ -369,11 +404,14 @@ def _ring_align(cache_full: torch.Tensor, S: int, W: int) -> torch.Tensor:
 
 def forward_prefill(cfg: ModelConfig, params: Model, batch, *,
                     block_skip: bool = False,
-                    quantize_kv_cache: bool = False):
+                    quantize_kv_cache: bool = False, mesh=None,
+                    data_axes=("data",), moe_fsdp: bool = True):
     """Returns (last-token logits (B, V), decode cache dict)."""
     hidden, cache, _, _ = forward_hidden(cfg, params, batch,
                                          block_skip=block_skip,
-                                         want_cache=True)
+                                         want_cache=True, mesh=mesh,
+                                         data_axes=data_axes,
+                                         moe_fsdp=moe_fsdp)
     logits = lm_head_logits(cfg, params.embed, params.lm_head, hidden[:, -1])
     S = hidden.shape[1]
     W = cfg.sliding_window
@@ -454,7 +492,8 @@ _READ_KEYS = ("xk", "xv")
 
 
 def _decoder_layer_decode(cfg: ModelConfig, p: DecoderLayer, x, cache_l,
-                          position):
+                          position, *, mesh=None, data_axes=("data",),
+                          moe_fsdp: bool = True, moe_ep_data: bool = False):
     """One layer's decode step.  The attention caches in ``cache_l`` are
     written in place; the SSM state comes back new.  Returns (x, the
     layer's cache entries)."""
@@ -505,7 +544,8 @@ def _decoder_layer_decode(cfg: ModelConfig, p: DecoderLayer, x, cache_l,
 
     if cfg.family == "moe":
         h2 = apply_norm(cfg, p.norm2, x)
-        out2, _ = moe_forward(cfg, p.moe, h2)
+        out2, _ = moe_forward(cfg, p.moe, h2, mesh=mesh, data_axes=data_axes,
+                              fsdp=moe_fsdp, ep_data=moe_ep_data)
         x = x + out2
     elif cfg.d_ff > 0:
         h2 = apply_norm(cfg, p.norm2, x)
@@ -514,14 +554,16 @@ def _decoder_layer_decode(cfg: ModelConfig, p: DecoderLayer, x, cache_l,
 
 
 def forward_decode(cfg: ModelConfig, params: Model, tokens: torch.Tensor,
-                   cache: dict):
+                   cache: dict, *, mesh=None, data_axes=("data",),
+                   moe_fsdp: bool = True, moe_ep_data: bool = False):
     """One decode step.  tokens: (B, 1) integer.  Returns (logits (B, V),
     new cache); the cache passed in is not modified: the attention caches
     are copied whole (one copy a step) and the new token written into the
     copy, the SSM state is made anew, the cross-attention K/V are
     shared."""
     position = cache["pos"]
-    x = embed_tokens(params.embed, tokens)
+    act_spec = P(tuple(data_axes), None, None)
+    x = _constrain(embed_tokens(params.embed, tokens), mesh, act_spec)
     new = {}
     for k, t in cache.items():
         if k == "pos":
@@ -531,7 +573,11 @@ def forward_decode(cfg: ModelConfig, params: Model, tokens: torch.Tensor,
     for l, layer in enumerate(params.layers):
         cache_l = {k: (cache[k] if k in _STATE_KEYS else new[k])[l]
                    for k in new}
-        x, out = _decoder_layer_decode(cfg, layer, x, cache_l, position)
+        x, out = _decoder_layer_decode(cfg, layer, x, cache_l, position,
+                                       mesh=mesh, data_axes=data_axes,
+                                       moe_fsdp=moe_fsdp,
+                                       moe_ep_data=moe_ep_data)
+        x = _constrain(x, mesh, act_spec)
         for k in _STATE_KEYS:
             if k in out:
                 new[k][l] = out[k]

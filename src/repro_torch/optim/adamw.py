@@ -49,14 +49,16 @@ def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
 
 @torch.no_grad()
 def adamw_update(grads: Dict[str, torch.Tensor], state: Dict,
-                 params: nn.Module, lr: torch.Tensor,
+                 params, lr: torch.Tensor,
                  tc: TrainConfig) -> tuple[nn.Module, Dict, torch.Tensor]:
-    """One AdamW step with global-norm clipping.  ``grads`` maps each
-    parameter name to its gradient.  The parameters and the state (the
-    moments and the step count) are updated in place; returns (params,
-    state, the gradients' global norm before clipping)."""
+    """One AdamW step with global-norm clipping.  ``params`` is a module
+    or a ``{name: tensor}`` dict; ``grads`` and the moments map each name
+    to its tensor.  The parameters and the state (the moments and the
+    step count) are updated in place; returns (params, state, the
+    gradients' global norm before clipping)."""
     step = state["step"] + 1
-    named = dict(params.named_parameters())
+    named = (params if isinstance(params, dict)
+             else dict(params.named_parameters()))
     gnorm = global_norm([grads[k] for k in named])
     clip = torch.clamp(tc.grad_clip / torch.clamp_min(gnorm, 1e-9), max=1.0)
 

@@ -8,7 +8,10 @@ configs, the JAX package's ``save`` of its ``init_params`` tree and the
 port's ``save`` of ``convert.params_from_numpy`` of the same tree give
 byte-identical step directories, and each package restores the other's
 checkpoint bit for bit; and a tensor written in place between ``save``
-and ``wait`` leaves the checkpoint holding the old values.
+and ``wait`` leaves the checkpoint holding the old values.  Last,
+``restore(..., shardings=)``: a model or a tree of ``ShardedTensor``\\ s
+saved from one mesh restores onto meshes of other shapes bit for bit,
+and each package reshards the other's checkpoint.
 """
 import dataclasses
 import json
@@ -30,6 +33,7 @@ from repro_torch import convert  # noqa: E402
 from repro_torch.checkpoint import (CheckpointError,  # noqa: E402
                                     CheckpointManager)
 from repro_torch.checkpoint import manager as M  # noqa: E402
+from repro_torch.distributed import sharding as SH  # noqa: E402
 from repro_torch.models import init_params  # noqa: E402
 
 KINDS = ["numpy", "tensor"]
@@ -203,10 +207,119 @@ def test_bf16_roundtrip_casts_back(tmp_path, kind):
 
 
 def test_restore_refuses_shardings(tmp_path):
+    """A sharding whose split dims the leaf does not divide is refused,
+    as ``jax.device_put`` refuses uneven shards (the (4, 3) ``w`` over a
+    model axis of 2 on its last dim)."""
     mgr = CheckpointManager(tmp_path)
     _save(mgr, 1, 1, "tensor")
-    with pytest.raises(NotImplementedError, match="mesh"):
-        mgr.restore(1, _tree(0, "tensor"), shardings={"w": None})
+    mesh = SH.lm_mesh((1, 2), ("data", "model"), devices=("cpu",))
+    bad = SH.Sharding(mesh, SH.P(None, "model"))
+    with pytest.raises(ValueError, match="split"):
+        mgr.restore(1, _tree(0, "tensor"),
+                    shardings={"w": bad, "b": None, "opt": {"mu": None}})
+
+
+# --- resharding restore ------------------------------------------------------
+
+def _meshes():
+    return {shape: SH.lm_mesh(shape, ("data", "model"), devices=("cpu",))
+            for shape in ((2, 2), (1, 4), (4, 1), (1, 1))}
+
+
+def test_restore_reshards_a_model_onto_any_mesh(tmp_path):
+    """A model saved from shards on a (2, 2) mesh restores onto (1, 4),
+    (4, 1) and one device: every shard bit-equal to the same block of the
+    model, the files byte-identical to the unsharded model's."""
+    cfg = TCF.smoke_config("grok-1-314b")
+    model = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    meshes = _meshes()
+    specs = SH.param_pspecs(cfg, model, meshes[(2, 2)].config)
+    sharded = SH.shard_tree(model, SH.named_shardings(meshes[(2, 2)], specs))
+    mgr = CheckpointManager(tmp_path / "sharded", keep=2)
+    mgr.save(4, sharded, blocking=True)
+    CheckpointManager(tmp_path / "whole").save(4, model, blocking=True)
+    # a dict of ShardedTensors saves its leaves whole, under its own keys
+    d = tmp_path / "sharded" / "step_00000004"
+    assert set(json.loads((d / "manifest.json").read_text())["leaves"]) \
+        == set(specs)
+    CheckpointManager(tmp_path / "model").save(4, model, blocking=True)
+    whole = dict(model.named_parameters())
+    for shape, mesh in meshes.items():
+        sh = SH.named_shardings(mesh, SH.param_pspecs(cfg, model,
+                                                      mesh.config))
+        for mgr_dir, like in (("model", model), ("sharded", sharded)):
+            got = CheckpointManager(tmp_path / mgr_dir).restore(
+                4, like, shardings=sh)
+            assert set(got) == set(whole)
+            for k, st in got.items():
+                assert st.mesh is mesh and st.dtype == whole[k].dtype
+                want = SH.shard_tensor(whole[k].detach(), sh[k])
+                for c in mesh.coords():
+                    assert torch.equal(st.shards[c], want.shards[c]), (k, c)
+    assert _files(tmp_path / "whole" / "step_00000004") == \
+        _files(tmp_path / "model" / "step_00000004")
+
+
+def test_restore_latest_reshards_a_tree(tmp_path):
+    """A tree of ShardedTensors (AdamW state) saved on (2, 2) comes back
+    on its own sharding without ``shardings``, and on (1, 4) with it."""
+    meshes = _meshes()
+    rng = np.random.default_rng(3)
+    m = torch.from_numpy(rng.normal(size=(8, 4)).astype(np.float32))
+    step = torch.tensor(7, dtype=torch.int32)
+    sh22 = {"m": SH.Sharding(meshes[(2, 2)], SH.P("data", "model")),
+            "step": SH.Sharding(meshes[(2, 2)], SH.P())}
+    tree = SH.shard_tree({"m": m, "step": step}, sh22)
+    mgr = CheckpointManager(tmp_path)
+    mgr.save(2, tree, blocking=True)
+    same = mgr.restore(2, tree)
+    assert same["m"].sharding is sh22["m"]
+    assert torch.equal(SH.unshard_tensor(same["m"]), m)
+    sh14 = {"m": SH.Sharding(meshes[(1, 4)], SH.P(None, "model")),
+            "step": None}
+    n, got = mgr.restore_latest(tree, shardings=sh14)
+    assert n == 2 and got["step"].sharding is sh22["step"]
+    assert int(SH.unshard_tensor(got["step"])) == 7
+    for c in meshes[(1, 4)].coords():
+        assert torch.equal(got["m"].shards[c], m[:, c[1]:c[1] + 1])
+
+
+def test_the_jax_package_and_the_port_reshard_each_others(tmp_path, both):
+    """Each package restores the other's checkpoint onto a (4, 2) mesh
+    with ``shardings=``: the port's shard at each coordinate bit-equal to
+    the JAX array's shard on the device at that coordinate."""
+    from jax.sharding import AxisType
+    from repro.distributed import sharding as JSH
+    from repro.config import MeshConfig as JMeshConfig
+    arch, jp, model = both
+    cfg = TCF.smoke_config(arch)
+    jmc = JMeshConfig((4, 2), ("data", "model"))
+    jm = jax.make_mesh((4, 2), ("data", "model"),
+                       axis_types=(AxisType.Auto,) * 2)
+    mesh = SH.lm_mesh((4, 2), ("data", "model"), devices=("cpu",))
+    jsh = JSH.named_shardings(jm, JSH.param_pspecs(jax_smoke_config(arch),
+                                                   jp, jmc))
+    tsh = SH.named_shardings(mesh, SH.param_pspecs(cfg, model, mesh.config))
+    CheckpointManager(tmp_path / "torch").save(1, model, blocking=True)
+    JManager(tmp_path / "jax").save(1, jp, blocking=True)
+    for src in ("torch", "jax"):
+        ref = JManager(tmp_path / src).restore(1, jp, shardings=jsh)
+        got = CheckpointManager(tmp_path / src).restore(1, model,
+                                                        shardings=tsh)
+        names = convert.param_names(model)
+        for path, leaf in jax.tree_util.tree_leaves_with_path(ref):
+            node = names
+            for key in path:
+                node = node[key.key]
+            for layer, name in enumerate(node if isinstance(node, tuple)
+                                         else (node,)):
+                by_dev = {sd.device: np.asarray(sd.data, np.float32)
+                          for sd in leaf.addressable_shards}
+                for c in mesh.coords():
+                    want = by_dev[jm.devices[c]]
+                    want = want[layer] if isinstance(node, tuple) else want
+                    assert np.array_equal(
+                        got[name].shards[c].float().numpy(), want), name
 
 
 # --- tests/test_sharding_infra.py's two checkpoint tests --------------------

@@ -15,6 +15,11 @@ the JAX package's, on the CPU.
   x train shape x mesh under the reference's 12 GiB budget, which the
   port takes as ``budget=``; the port's default is 75% of the H100's
   80 GB.
+* ``optim/grad_compress.py``: ``quantize_int8``/``dequantize_int8``
+  bit-equal; ``compressed_psum_leaf``'s result and error feedback over
+  four steps against the reference's, bit for bit, in a ``shard_map``
+  over a 1-D ("pod",) mesh; ``compressed_pod_mean`` on a pod/data/model
+  mesh.
 """
 import dataclasses
 
@@ -23,6 +28,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from repro import config as JC  # noqa: E402
@@ -194,3 +200,101 @@ def test_memplan_budget():
                               TC.SHAPES["train_4k"], mesh)
     assert (big.microbatches, big.moment_dtype, big.grad_accum_dtype) == \
         (64, "bfloat16", "bfloat16")
+
+
+# --- int8 gradient compression (optim/grad_compress.py) -----------------------
+
+def _pod_values(n, shape, seed, scale=1.0):
+    rng = np.random.default_rng(seed)
+    return [(rng.standard_normal(shape) * scale).astype(np.float32)
+            for _ in range(n)]
+
+
+@pytest.mark.parametrize("scale", [1.0, 1e-3, 0.0])
+def test_quantize_int8_bit_equal(scale):
+    from repro.optim import grad_compress as JG
+    from repro_torch.optim import grad_compress as TG
+    x = _pod_values(1, (37, 5), 4, scale)[0]
+    jq, js = JG.quantize_int8(jnp.asarray(x))
+    tq, ts = TG.quantize_int8(torch.from_numpy(x))
+    assert tq.dtype == torch.int8
+    np.testing.assert_array_equal(tq.numpy(), np.asarray(jq))
+    assert float(ts) == float(js)
+    np.testing.assert_array_equal(TG.dequantize_int8(tq, ts).numpy(),
+                                  np.asarray(JG.dequantize_int8(jq, js)))
+
+
+@pytest.mark.parametrize("n_pods", [2, 4])
+def test_compressed_psum_leaf_with_error_feedback(n_pods):
+    """Four steps of each pod's own gradient through the compressed pod
+    mean, each step's error fed back: the port's per-coordinate result
+    and error against the reference's ``compressed_psum_leaf`` in a
+    ``shard_map`` over a 1-D ("pod",) mesh, the pods' values stacked on a
+    leading axis that the mesh splits: bit for bit."""
+    from conftest import need_devices
+    from jax.sharding import AxisType
+    from jax.sharding import PartitionSpec as JP
+    from repro.compat import shard_map
+    from repro.optim import grad_compress as JG
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.optim import grad_compress as TG
+    need_devices(n_pods)
+    jm = jax.make_mesh((n_pods,), ("pod",), axis_types=(AxisType.Auto,))
+    tm = SH.lm_mesh((n_pods,), ("pod",), devices=("cpu",))
+
+    def body(g, e):
+        r, ne = JG.compressed_psum_leaf(g[0], e[0], "pod")
+        return r[None], ne[None]
+
+    step = jax.jit(shard_map(body, mesh=jm, in_specs=(JP("pod"), JP("pod")),
+                             out_specs=(JP("pod"), JP("pod")),
+                             check_vma=False))
+    je = jnp.zeros((n_pods, 6, 10), jnp.float32)
+    te = {c: torch.zeros(6, 10) for c in tm.coords()}
+    for s in range(4):
+        gs = _pod_values(n_pods, (6, 10), 10 + s, scale=10.0 ** -s)
+        jr, je = step(jnp.asarray(np.stack(gs)), je)
+        tr, te = TG.compressed_psum_leaf(
+            tm, {(i,): torch.from_numpy(g) for i, g in enumerate(gs)}, te)
+        for i in range(n_pods):
+            np.testing.assert_array_equal(tr[(i,)].numpy(), np.asarray(jr[i]))
+            np.testing.assert_array_equal(te[(i,)].numpy(), np.asarray(je[i]))
+    assert tm.traffic["psum"] > 0 and tm.traffic["pmean"] > 0
+
+
+def test_compressed_pod_mean_on_a_pod_data_model_mesh():
+    """On a (2, 2, 2) pod/data/model mesh (where the reference's
+    ``shard_map`` over pod alone fails under jax 0.9): a tree of a
+    ShardedTensor, whose two pods hold different values, and a tensor
+    every coordinate holds alike.  Every coordinate gets its pod group's
+    ``compressed_psum_leaf`` on a 1-D pod mesh; ``init_error_state`` is
+    float32 zeros shaped as each leaf."""
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.optim import grad_compress as TG
+    tm = SH.lm_mesh((2, 2, 2), ("pod", "data", "model"), devices=("cpu",))
+    pods = SH.lm_mesh((2,), ("pod",), devices=("cpu",))
+    per_pod = [torch.from_numpy(v) for v in _pod_values(2, (8, 4), 1)]
+    sh = SH.Sharding(tm, SH.P("data", "model"))
+    shards = {}
+    for c in tm.coords():
+        blk = SH.shard_tensor(per_pod[c[0]], sh).shards[c]
+        shards[c] = blk
+    g = {"w": SH.ShardedTensor(sh, torch.Size((8, 4)), shards),
+         "b": torch.arange(6.0)}
+    err = TG.init_error_state(g)
+    assert err["b"].dtype == torch.float32 and err["b"].shape == (6,)
+    assert set(err["w"].shards) == set(tm.coords())
+    new_g, new_e = TG.compressed_pod_mean(g, err, tm)
+    for c in tm.coords():
+        want, want_e = TG.compressed_psum_leaf(
+            pods, {(i,): shards[(i,) + c[1:]] for i in range(2)},
+            {(i,): torch.zeros(shards[c].shape) for i in range(2)})
+        assert torch.equal(new_g["w"].shards[c], want[(c[0],)])
+        assert torch.equal(new_e["w"].shards[c], want_e[(c[0],)])
+    b, _ = TG.compressed_psum_leaf(
+        pods, {(i,): torch.arange(6.0) for i in range(2)},
+        {(i,): torch.zeros(6) for i in range(2)})
+    assert torch.equal(new_g["b"], b[(0,)])
+    with pytest.raises(ValueError, match="pod"):
+        TG.compressed_pod_mean(g, err, SH.lm_mesh((2, 2), ("data", "model"),
+                                                  devices=("cpu",)))
