@@ -195,6 +195,18 @@ Phases (one line each, or a few):
      coordinate and the logits' distance from ``mesh=None``, reported;
      (d) the qwen, grok and deepseek smoke configs' sharded prefill,
      decode and train step on the CPU and the card.
+ 21. the multi-pod dry run (``python -m repro_torch.launch.dryrun``
+     through its ``main``) on ``meta`` tensors: (a) llama3-8b
+     decode_32k on the 256- and the 512-coordinate production meshes and
+     mamba2-370m train_4k on the 256-coordinate one, at full width, into
+     a temporary directory the phase deletes: each record ok, its
+     roofline ``cost_for`` of its plan at the H100's rates, the table of
+     ``roofline.report``, plan and trace seconds; (b) llama3-8b decode
+     and mamba2-370m train (4 x 2048, the plan ``plan_cell`` picks)
+     traced on a one-device mesh and run on the card from the same
+     shapes: B4/B5 launches equal to the trace's calls, the card's peak
+     memory within DRYRUN_PEAK_TOL of ``total_hbm_bytes``, the walls
+     beside ``step_lower_bound_s``.
 Every time is taken by ``repro_torch.kernels.timing``: the calls are
 queued behind a sleep kernel, and a kernel's or a library call's reading
 that the host paced is taken again behind a longer sleep (a plain
@@ -316,6 +328,17 @@ SHARD_GROK = (2, 2, 2048, 4)
 # this rtol and this share of the largest |logit|, losses relative
 SHARD_SMOKE = (("qwen1.5-32b", "grok-1-314b", "deepseek-v2-236b"), 4, 64)
 SHARD_SMOKE_TOL = 1e-4
+# phase 21: the dry run.  [21a]: (arch, shape, meshes) through the CLI on
+# the production meshes (pod1: 16 x 16, pod2: 2 x 16 x 16).  deepseek-v2's
+# prefill_32k on pod2 traces in ~100 s on a CPU, past the phase's limit
+DRYRUN_CELLS = (("llama3-8b", "decode_32k", ("pod1", "pod2")),
+                ("mamba2-370m", "train_4k", ("pod1",)))
+# [21b]: (arch, sequence, batch, kind) traced on a one-device mesh and run
+# on the card from the same shapes; the card's peak within this share of
+# the trace's total_hbm_bytes
+DRYRUN_CARD = (("llama3-8b", 2048, 4, "decode"),
+               ("mamba2-370m", 2048, 4, "train"))
+DRYRUN_PEAK_TOL = 0.25
 EXAMPLES = ("torch_quickstart", "torch_lqcd_cg",
             "torch_green500_measurement", "torch_autotune_sweep",
             "torch_efficient_serving")
@@ -1918,7 +1941,7 @@ def phase20(dev, card: str, records: list) -> float:
                                                   mode="serve"))
     sparams = SH.shard_tree(params, sh)
     torch.cuda.synchronize()
-    mesh.traffic.clear()
+    mesh.calls.clear()
     torch.cuda.reset_peak_memory_stats()
     held = torch.cuda.memory_allocated()
     (shard, _, pre1, dec1), n1 = counted(
@@ -1976,7 +1999,7 @@ def phase20(dev, card: str, records: list) -> float:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         held = torch.cuda.memory_allocated()
-        mesh.traffic.clear()
+        mesh.calls.clear()
         if kind == "one_device":
             p = copy.deepcopy(params)
             o = adamw_init(p)
@@ -2083,7 +2106,7 @@ def phase20(dev, card: str, records: list) -> float:
         for kind, m, ep in (("mesh_none", None, False),
                             ("mesh_2x2", mesh, True)):
             drops.clear()
-            mesh.traffic.clear()
+            mesh.calls.clear()
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
             held = torch.cuda.memory_allocated()
@@ -2172,6 +2195,167 @@ def phase20(dev, card: str, records: list) -> float:
     t20 = time.perf_counter() - t20
     print(f"[20] phase 20 took {t20:.1f} s ({card})")
     return t20
+
+
+
+def phase21(dev, card: str, records: list) -> float:
+    """[21] The multi-pod dry run (``launch.dryrun``) on ``meta`` tensors:
+    (a) its CLI at full width on the production meshes (256 and 512
+    coordinates), each record ``ok``, its
+    roofline ``cost_for`` of its plan at the H100's rates, the records
+    rendered by ``roofline.report``, into a temporary directory the phase
+    deletes; (b) two cells traced on a one-device mesh and run on the card
+    from the same shapes: B4/B5 launches equal to the trace's calls, the
+    card's peak memory within DRYRUN_PEAK_TOL of the record's
+    ``total_hbm_bytes``, the walls beside ``step_lower_bound_s``.  Returns
+    the phase's seconds."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.config import (SHAPES, MeshConfig, ShapeConfig,
+                                    TrainConfig, full_config)
+    from repro_torch.distributed.sharding import lm_mesh
+    from repro_torch.kernels.rmsnorm import kernel as RK
+    from repro_torch.kernels.ssd_chunk import kernel as SK
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.launch.mesh import mesh_config
+    from repro_torch.power.model import H100_SXM
+    from repro_torch.roofline import report as REP
+    from repro_torch.roofline.analytic import cost_for
+
+    t21 = time.perf_counter()
+    torch.cuda.empty_cache()
+    GB = 1e9
+
+    # (a) the CLI at full width on the production mesh
+    out = Path(tempfile.mkdtemp(prefix="dryrun_torch_"))
+    try:
+        done = []
+
+        def check_record(arch, shape_name, multi_pod):
+            name = DR._cell_name(arch, shape_name, multi_pod, "baseline")
+            rec = json.loads((out / f"{name}.json").read_text())
+            check(rec["status"] == "ok", f"[21a] {name} is ok")
+            cfg, shape = full_config(arch), SHAPES[shape_name]
+            plan = rec["plan"]
+            tc = (TrainConfig(**{k: plan[k] for k in (
+                "microbatches", "moment_dtype", "grad_accum_dtype",
+                "remat")}) if shape.kind == "train" else None)
+            ac = cost_for(cfg, shape, mesh_config(multi_pod=multi_pod), tc,
+                          serve_tp_only=plan["serve_tp_only"],
+                          kv_int8=plan.get("kv_cache_int8", False),
+                          moe_ep=plan["moe_ep_data"], chip=H100_SXM)
+            r = rec["roofline"]
+            check([r[k] for k in (
+                "compute_s", "memory_s", "collective_s", "flops_per_chip",
+                "hbm_bytes_per_chip", "ici_bytes_per_chip",
+                "dcn_bytes_per_chip")] == [
+                ac.compute_s, ac.memory_s, ac.collective_s, ac.flops,
+                ac.hbm_bytes, ac.ici_bytes, ac.dcn_bytes],
+                f"[21a] {name}: the roofline is cost_for of its plan at the "
+                f"H100's rates")
+            m, tr = rec["memory"], rec["traced"]
+            print(f"[21a] {name} ({rec['n_devices']} coordinates on meta): "
+                  f"plan {plan}; plan_s {rec['plan_s']}, trace_s "
+                  f"{rec['trace_s']}; roofline compute {r['compute_s']:.6g} "
+                  f"s, memory {r['memory_s']:.6g} s, collective "
+                  f"{r['collective_s']:.6g} s ({r['dominant']}), useful "
+                  f"{r['useful_ratio']:.4f}, fraction "
+                  f"{r['roofline_fraction']:.4f}; traced per chip "
+                  f"{tr['flops_per_chip']:.6g} FLOP, "
+                  f"{tr['bytes_per_chip']:.6g} B, peak "
+                  f"{tr['peak_bytes_per_chip'] / GB:.4f} GB, kernel calls "
+                  f"{tr['kernel_calls_per_chip']}; memory "
+                  f"{m['total_hbm_bytes'] / GB:.4f} GB a chip (fits "
+                  f"{rec['fits_hbm']}); collectives of the "
+                  f"{rec['collectives_scope']} {sorted(rec['collectives'])}")
+            done.append(rec)
+
+        for arch, shape_name, meshes in DRYRUN_CELLS:
+            DR.main(["--arch", arch, "--shape", shape_name, "--out",
+                     str(out)] + {("pod1",): [], ("pod2",): ["--multi-pod"],
+                                  ("pod1", "pod2"): ["--both-meshes"]}[meshes])
+            for mesh in meshes:
+                check_record(arch, shape_name, mesh == "pod2")
+        rows = [line for mesh in ("pod1", "pod2")
+                for line in REP.markdown_table(
+                    REP.load_cells(out, mesh=mesh)).splitlines()[2:]]
+        check(len(rows) == len(done)
+              and all("| ok |" in row for row in rows),
+              "[21a] the report renders every record")
+        print("[21a] " + REP.markdown_table([]).splitlines()[0])
+        for row in rows:
+            print("[21a] " + row)
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+
+    # (b) the trace held against the card on a one-device mesh
+    mc1 = MeshConfig((1, 1), ("data", "model"))
+    checked = {}
+    for arch, S, B, kind in DRYRUN_CARD:
+        cfg = full_config(arch)
+        shape = ShapeConfig(f"{kind}_{B}x{S}", S, B, kind)
+        plan, tc = DR.plan_cell(cfg, shape, mc1)
+        t0 = time.perf_counter()
+        cost, mem = DR.trace_cell(
+            cfg, shape, lm_mesh((1, 1), ("data", "model"),
+                                devices=("meta",)),
+            mc1, "baseline", plan, tc)
+        t_trace = time.perf_counter() - t0
+        roof = DR.roofline_record(cfg, shape, mc1, "baseline", plan, tc)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        step, args, _, _ = DR.cell_step(
+            cfg, shape, lm_mesh((1, 1), ("data", "model"), devices=(dev,)),
+            mc1, "baseline", plan, tc, device=dev)
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated() - base
+        walls, peaks = [], []
+        for _ in range(2):          # cold, then warm
+            RK.reset_launches()
+            SK.reset_launches()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            result = step(*args)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            peaks.append(torch.cuda.max_memory_allocated() - base)
+            launches = {"rmsnorm": RK.LAUNCHES["rmsnorm"],
+                        "ssd_chunk": SK.LAUNCHES["ssd_chunk"]}
+            del result
+        check(launches == cost.kernel_calls,
+              f"[21b] {arch} {kind}: the card's B4/B5 launches {launches} "
+              f"are the trace's calls {cost.kernel_calls}")
+        total = mem["total_hbm_bytes"]
+        err = max(abs(p - total) for p in peaks) / total
+        print(f"[21b] {arch} {kind} {B} x {S} on a (1, 1) mesh, plan {plan}: "
+              f"traced in {t_trace:.1f} s, B4/B5 {launches} on the card and "
+              f"in the trace; arguments {mem['argument_size_in_bytes'] / GB:.4f}"
+              f" GB traced, {resident / GB:.4f} GB resident on the card; "
+              f"total_hbm_bytes {total / GB:.4f} GB (temp "
+              f"{mem['temp_size_in_bytes'] / GB:.4f}, output "
+              f"{mem['output_size_in_bytes'] / GB:.4f}, alias "
+              f"{mem['alias_size_in_bytes'] / GB:.4f}) against the card's "
+              f"peak {peaks[0] / GB:.4f} / {peaks[1] / GB:.4f} GB (cold / "
+              f"warm; {100 * err:.2f}% off at most); wall "
+              f"{walls[0] * 1e3:.2f} / {walls[1] * 1e3:.2f} ms beside "
+              f"step_lower_bound_s {roof['step_lower_bound_s'] * 1e3:.4f} ms "
+              f"({roof['dominant']}) ({card})")
+        check(err <= DRYRUN_PEAK_TOL,
+              f"[21b] {arch} {kind}: the card's peak within "
+              f"{DRYRUN_PEAK_TOL:.0%} of the dry run's total_hbm_bytes")
+        checked[f"{arch} {kind}"] = launches
+        del step, args
+        torch.cuda.empty_cache()
+    for r in records:
+        r["launches_by_dryrun_check"] = {k: v.get(r["name"], 0)
+                                         for k, v in checked.items()}
+    t21 = time.perf_counter() - t21
+    print(f"[21] phase 21 took {t21:.1f} s ({card})")
+    return t21
 
 
 
@@ -3652,7 +3836,11 @@ def main() -> int:
     t20 = phase20(dev, card, records)
     check(t20 <= 200.0, "phase 20 takes at most 200 s")
 
-    print(f"[20] chip_smoke.py took {time.perf_counter() - t_start:.1f} s "
+    # 21. the multi-pod dry run on meta tensors, held against the card
+    t21 = phase21(dev, card, records)
+    check(t21 <= 120.0, "phase 21 takes at most 120 s")
+
+    print(f"[21] chip_smoke.py took {time.perf_counter() - t_start:.1f} s "
           f"in all")
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {

@@ -13,11 +13,14 @@ its own type, as XLA's all-reduce does on the reference's CPU devices
 share a device share the result tensor.  Everything is built from
 differentiable torch ops, so autograd runs through a body.
 
-Each call adds the bytes a ring over the group would send to
-``mesh.traffic[name]``, summed over every coordinate of the mesh:
-``(n - 1)`` blocks each for ``all_gather``, ``2 (n - 1) / n`` of the
-tensor for ``psum`` and ``pmean``, ``(n - 1) / n`` for
-``psum_scatter``.  An axis of size 1 moves nothing.
+Each call along an axis of more than one coordinate is logged in
+``mesh.calls[(name, axis)]``: its ``count``, and every coordinate's
+result bytes (``out_bytes``) and the bytes a ring over its group would
+send (``wire_bytes``, whole bytes per coordinate): ``(n - 1)`` blocks
+each for ``all_gather``, ``2 (n - 1) / n`` of the tensor for ``psum``
+and ``pmean``, ``(n - 1) / n`` for ``psum_scatter``.  ``mesh.traffic``
+sums the ring bytes by name; ``roofline.analysis.collective_stats``
+reads them per chip.
 """
 from __future__ import annotations
 
@@ -41,8 +44,15 @@ def _groups(mesh: LMMesh, axis: str):
     return list(seen.values())
 
 
-def _count(mesh: LMMesh, name: str, nbytes: float) -> None:
-    mesh.traffic[name] = mesh.traffic.get(name, 0) + int(nbytes)
+def _log(mesh: LMMesh, name: str, axis: str, out: PerCoord,
+         wire: int) -> None:
+    """One call of ``name`` along ``axis`` into ``mesh.calls``."""
+    rec = mesh.calls.setdefault((name, axis), dict.fromkeys(
+        ("count", "out_bytes", "wire_bytes"), 0))
+    rec["count"] += 1
+    rec["out_bytes"] += sum(t.numel() * t.element_size()
+                            for t in out.values())
+    rec["wire_bytes"] += wire
 
 
 def _combine(mesh: LMMesh, xs: PerCoord, axis: str, name: str,
@@ -54,6 +64,7 @@ def _combine(mesh: LMMesh, xs: PerCoord, axis: str, name: str,
     sends."""
     out: PerCoord = {}
     n = mesh.size(axis)
+    sent = 0
     for group in _groups(mesh, axis):
         reduced: Dict[torch.device, torch.Tensor] = {}
         for j, c in enumerate(group):
@@ -61,9 +72,9 @@ def _combine(mesh: LMMesh, xs: PerCoord, axis: str, name: str,
             if dev not in reduced:
                 reduced[dev] = reduce([xs[g].to(dev) for g in group])
             out[c] = take(reduced[dev], j)
-            if n > 1:
-                _count(mesh, name, wire * xs[c].numel()
-                       * xs[c].element_size())
+            sent += int(wire * xs[c].numel() * xs[c].element_size())
+    if n > 1:
+        _log(mesh, name, axis, out, sent)
     return out
 
 

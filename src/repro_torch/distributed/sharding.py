@@ -74,13 +74,23 @@ class P(tuple):
 class LMMesh:
     """An N-D mesh of ``shape`` over ``axis_names``; coordinate ``c`` (row
     major, the last axis fastest) lives on ``devices[flat(c)]``.
-    ``traffic`` counts the bytes each collective of
-    ``distributed.collectives`` moved over this mesh, by name."""
+    ``calls`` logs each collective of ``distributed.collectives`` over
+    this mesh: its calls, result bytes and ring bytes, by (name, axis)."""
 
     shape: Tuple[int, ...]
     axis_names: Tuple[str, ...]
     devices: Tuple[torch.device, ...]
-    traffic: Dict[str, int] = field(default_factory=dict, repr=False)
+    calls: Dict[Tuple[str, str], Dict[str, int]] = field(
+        default_factory=dict, repr=False)
+
+    @property
+    def traffic(self) -> Dict[str, int]:
+        """The ring bytes each collective moved over this mesh, by name,
+        summed over its axes."""
+        out: Dict[str, int] = {}
+        for (name, _), rec in self.calls.items():
+            out[name] = out.get(name, 0) + rec["wire_bytes"]
+        return out
 
     def size(self, axis=None) -> int:
         """The coordinates along ``axis`` (a name, a tuple of names, or

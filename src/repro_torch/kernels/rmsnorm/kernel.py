@@ -25,6 +25,9 @@ from repro_torch.kernels._build import library
 # launches of the kernel in this process; a run that must show it went
 # through the kernel sets this to 0 before and reads it after
 LAUNCHES = {"rmsnorm": 0}
+# calls on ``meta`` tensors that ``ops.rmsnorm`` gave the plain version in
+# the kernel's place (the dry run's count of launches), reset with LAUNCHES
+TRACED = {"rmsnorm": 0}
 # the same launches by (rows, d, x dtype), reset with LAUNCHES
 SHAPE_LAUNCHES: collections.Counter = collections.Counter()
 
@@ -37,6 +40,7 @@ VARIANTS = ("block", "rows_g1", "rows_g2", "rows_g4", "rows_g8")
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+        TRACED[k] = 0
     SHAPE_LAUNCHES.clear()
 
 

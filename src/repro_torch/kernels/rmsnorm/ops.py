@@ -7,6 +7,12 @@ differentiates directly; a CUDA tensor takes the hand-written kernel
 fallback from the kernel to the plain version.  Where autograd records
 the call, the kernel runs inside ``RMSNormFunction``, whose backward is
 autograd of the plain version (``kernels/autograd.py``).
+
+Tensors on the ``meta`` device (the dry run's trace) take the plain
+version in the kernel's place, inside ``RMSNormFunction`` where autograd
+records, so the trace allocates and saves what the card's call does; each
+such call counts in ``kernel.TRACED``, not in ``kernel.LAUNCHES``.
+Tensors on mixed devices go to the kernel, which raises.
 """
 from __future__ import annotations
 
@@ -34,6 +40,10 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, *,
     works: the CUDA kernel has no block-divisibility condition."""
     if x.device.type == "cpu" and w.device.type == "cpu":
         return rmsnorm_ref(x, w, eps)
+    run = _kernel_nd
+    if x.device.type == "meta" and w.device.type == "meta":
+        kernel.TRACED["rmsnorm"] += 1
+        run = rmsnorm_ref
     if needs_grad(x, w):
-        return RMSNormFunction.apply(_kernel_nd, rmsnorm_ref, x, w, eps)
-    return _kernel_nd(x, w, eps)
+        return RMSNormFunction.apply(run, rmsnorm_ref, x, w, eps)
+    return run(x, w, eps)

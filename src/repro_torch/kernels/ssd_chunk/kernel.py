@@ -23,6 +23,10 @@ from repro_torch.kernels._build import library
 # launches of the kernel in this process; a run that must show it went
 # through the kernel sets this to 0 before and reads it after
 LAUNCHES = {"ssd_chunk": 0}
+# calls on ``meta`` tensors that ``ops.ssd_chunk`` gave the plain version
+# in the kernel's place (the dry run's count of launches), reset with
+# LAUNCHES
+TRACED = {"ssd_chunk": 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # The source's tiles (kTI, kTJ, kTP, kTN, kTK, kHG), threads per block
@@ -44,6 +48,7 @@ MAX_SMEM_BYTES = 232448             # 227 KB: one Hopper block's limit
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+        TRACED[k] = 0
 
 
 @functools.cache

@@ -7,6 +7,12 @@ differentiates directly; a CUDA tensor takes the hand-written kernel
 fallback from the kernel to the plain version.  Where autograd records
 the call, the kernel runs inside ``SSDChunkFunction``, whose backward is
 autograd of the plain version (``kernels/autograd.py``).
+
+Tensors on the ``meta`` device (the dry run's trace) take the plain
+version in the kernel's place, inside ``SSDChunkFunction`` where autograd
+records, so the trace allocates and saves what the card's call does; each
+such call counts in ``kernel.TRACED``, not in ``kernel.LAUNCHES``.
+Tensors on mixed devices go to the kernel, which raises.
 """
 from __future__ import annotations
 
@@ -33,6 +39,10 @@ def ssd_chunk(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     args = (x, dt, A, B_mat, C_mat, h)
     if all(t.device.type == "cpu" for t in args):
         return ssd_chunk_ref(*args)
+    run = kernel.ssd_chunk
+    if all(t.device.type == "meta" for t in args):
+        kernel.TRACED["ssd_chunk"] += 1
+        run = ssd_chunk_ref
     if needs_grad(*args):
-        return SSDChunkFunction.apply(kernel.ssd_chunk, ssd_chunk_ref, *args)
-    return kernel.ssd_chunk(*args)
+        return SSDChunkFunction.apply(run, ssd_chunk_ref, *args)
+    return run(*args)

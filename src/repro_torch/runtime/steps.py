@@ -52,14 +52,20 @@ class _Bound(nn.Module):
         return fn(self.model)
 
 
-def _skeleton(cfg: ModelConfig) -> Callable[[], nn.Module]:
-    """The model's structure on the ``meta`` device, made at first use."""
+def _skeleton(cfg: ModelConfig, mesh) -> Callable[[], nn.Module]:
+    """The model's structure on the ``meta`` device.  Over a mesh, where
+    the step takes parameters as a dict, it is made with the step (not
+    inside it, where a trace of the step on ``meta`` would count its
+    parameters as memory the step allocates); else at first use (a
+    one-device step given a ``Model`` never uses it)."""
     made = []
 
     def get() -> nn.Module:
         if not made:
             made.append(_Bound(empty_params(cfg, "meta")))
         return made[0]
+    if mesh is not None:
+        get()
     return get
 
 
@@ -173,7 +179,7 @@ def _sharded_train_step(cfg: ModelConfig, tc: TrainConfig, mesh,
     shards (a block's other copies, on other devices, then take its
     values)."""
     gdt = getattr(torch, tc.grad_accum_dtype)
-    skeleton = _skeleton(cfg)
+    skeleton = _skeleton(cfg, mesh)
 
     def leaves(tree: Dict) -> Dict:
         """``{(name, block): tensor}``: each block's first shard."""
@@ -245,7 +251,7 @@ def make_prefill_step(cfg: ModelConfig, mesh=None,
     """``prefill_step(params, batch) -> (logits, cache)``; ``params`` a
     ``Model`` or, over ``mesh``, ``{name: ShardedTensor}`` too."""
     data_axes = _data_axes(mesh_cfg)
-    skeleton = _skeleton(cfg)
+    skeleton = _skeleton(cfg, mesh)
 
     @torch.inference_mode()
     def prefill_step(params, batch):
@@ -285,7 +291,7 @@ def make_decode_step(cfg: ModelConfig, mesh=None,
     """``decode_step(params, tokens, cache) -> (logits, cache)``; ``params``
     as in ``make_prefill_step``."""
     data_axes = _data_axes(mesh_cfg)
-    skeleton = _skeleton(cfg)
+    skeleton = _skeleton(cfg, mesh)
 
     @torch.inference_mode()
     def decode_step(params, tokens, cache):
