@@ -1,0 +1,9 @@
+"""device_idle.hpl: the share of the profiled stretch of HPL runs in
+which no device activity ran, in %."""
+
+
+def read(rec):
+    tr = rec["trace"]
+    if tr is None or tr["busy_s"] <= 0:
+        return None
+    return 100.0 * (1.0 - tr["busy_s"] / tr["window_s"])
