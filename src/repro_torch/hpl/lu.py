@@ -13,7 +13,13 @@ the trailing matrix, as two GEMMs.
 The JAX version keeps the full n x n matrix and masks the active region,
 because XLA needs static shapes.  This one works on the active windows;
 every term the mask removes is an exact 0 or an unchanged entry, so the
-values are the same.  The factorization reads nothing back to the host.
+values are the same.  The factorization reads nothing back to the host;
+the solve reads the pivots back once.
+
+Spans (``repro_torch.spans``) mark the factorization, each panel, each
+U12 solve and each update, and the solve with its permutation and its
+triangular solves; they cost one check of the profiler's state each when
+no profiler records.
 """
 from __future__ import annotations
 
@@ -22,6 +28,10 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.kernels.dgemm.ops import dgemm_update_
+from repro_torch.spans import (HPL_HOST_SYNC, HPL_LU, HPL_PANEL, HPL_SOLVE,
+                               HPL_SOLVE_PERM, HPL_SOLVE_TRSV, HPL_TRSM,
+                               HPL_UPDATE, HPL_UPDATE_NEXT, HPL_UPDATE_REST,
+                               span)
 
 
 class LUResult(NamedTuple):
@@ -59,23 +69,30 @@ def blocked_lu(a: torch.Tensor, nb: int, *, lookahead: int = 1) -> LUResult:
     if n % nb:
         raise ValueError("n must be a multiple of the block size")
     steps = n // nb
-    a = a.clone()
-    piv = torch.empty((steps, nb), dtype=torch.int32, device=a.device)
-    rows = torch.arange(n, device=a.device)
-    for k in range(steps):
-        k0, k1 = k * nb, (k + 1) * nb
-        _panel_factor(a, k0, nb, piv[k], rows)
-        if k1 == n:
-            break
-        a[k0:k1, k1:] = torch.linalg.solve_triangular(
-            a[k0:k1, k0:k1], a[k0:k1, k1:], upper=False, unitriangular=True)
-        l21, u12, a22 = a[k1:, k0:k1], a[k0:k1, k1:], a[k1:, k1:]
-        if lookahead > 0:
-            dgemm_update_(a22[:, :nb], l21, u12[:, :nb])
-            if k1 + nb < n:
-                dgemm_update_(a22[:, nb:], l21, u12[:, nb:])
-        else:
-            dgemm_update_(a22, l21, u12)
+    with span(HPL_LU):
+        a = a.clone()
+        piv = torch.empty((steps, nb), dtype=torch.int32, device=a.device)
+        rows = torch.arange(n, device=a.device)
+        for k in range(steps):
+            k0, k1 = k * nb, (k + 1) * nb
+            with span(HPL_PANEL):
+                _panel_factor(a, k0, nb, piv[k], rows)
+            if k1 == n:
+                break
+            with span(HPL_TRSM):
+                a[k0:k1, k1:] = torch.linalg.solve_triangular(
+                    a[k0:k1, k0:k1], a[k0:k1, k1:], upper=False,
+                    unitriangular=True)
+            l21, u12, a22 = a[k1:, k0:k1], a[k0:k1, k1:], a[k1:, k1:]
+            if lookahead > 0:
+                with span(HPL_UPDATE_NEXT):
+                    dgemm_update_(a22[:, :nb], l21, u12[:, :nb])
+                if k1 + nb < n:
+                    with span(HPL_UPDATE_REST):
+                        dgemm_update_(a22[:, nb:], l21, u12[:, nb:])
+            else:
+                with span(HPL_UPDATE):
+                    dgemm_update_(a22, l21, u12)
     return LUResult(a, piv, steps)
 
 
@@ -86,13 +103,18 @@ def lu_solve(res: LUResult, b: torch.Tensor, nb: int) -> torch.Tensor:
     n = b.shape[0]
     if res.piv.numel() != n:
         raise ValueError(f"{res.piv.numel()} pivots for {n} rows")
-    # the swaps, applied in order, as one permutation: one read of piv
-    perm = list(range(n))
-    for col, p in enumerate(res.piv.reshape(-1).tolist()):
-        perm[col], perm[p] = perm[p], perm[col]
-    pb = b[torch.tensor(perm, device=b.device)]
-    rhs = pb.unsqueeze(-1) if b.dim() == 1 else pb
-    y = torch.linalg.solve_triangular(res.lu, rhs, upper=False,
-                                      unitriangular=True)
-    x = torch.linalg.solve_triangular(res.lu, y, upper=True)
+    with span(HPL_SOLVE):
+        with span(HPL_SOLVE_PERM):
+            # the swaps, applied in order, as one permutation; piv read once
+            with span(HPL_HOST_SYNC):
+                piv = res.piv.reshape(-1).tolist()
+            perm = list(range(n))
+            for col, p in enumerate(piv):
+                perm[col], perm[p] = perm[p], perm[col]
+            pb = b[torch.tensor(perm, device=b.device)]
+        with span(HPL_SOLVE_TRSV):
+            rhs = pb.unsqueeze(-1) if b.dim() == 1 else pb
+            y = torch.linalg.solve_triangular(res.lu, rhs, upper=False,
+                                              unitriangular=True)
+            x = torch.linalg.solve_triangular(res.lu, y, upper=True)
     return x.squeeze(-1) if b.dim() == 1 else x

@@ -8,6 +8,16 @@ CGNE on the normal equations M†M x = M† b (M is not hermitian), with the
 stay on the inputs' device.  The stopping test reads the residual norm
 back every iteration (one host sync each), which keeps the iteration
 counts equal to the JAX package's ``lax.while_loop``.
+
+Every read-back to the host goes through ``repro_torch.spans.host_sync``
+in an ``lqcd.host_sync`` span, so a profiled solve counts its host syncs:
+the even-odd solve makes inner + 3·outer + 3 of them when its outer loop
+ends at the tolerance (per round the outer test, the inner CG's stopping
+tests and its residual; then the last outer test, ‖b‖ and the true
+residual).  The other spans (``repro_torch.spans``) mark the solve, its
+preparation, each outer round, each CG iteration and its normal operator,
+and the odd reconstruction; they cost one check of the profiler's state
+each when no profiler records.
 """
 from __future__ import annotations
 
@@ -19,6 +29,9 @@ from repro_torch.lqcd.dirac import wilson_matvec, wilson_matvec_dagger
 from repro_torch.lqcd.eo import (eo_pack, eo_rhs, eo_unpack, pack_gauge,
                                  reconstruct_odd, schur_matvec,
                                  schur_matvec_dagger)
+from repro_torch.spans import (LQCD_CG_ITER, LQCD_EO_FINISH, LQCD_EO_OUTER,
+                               LQCD_EO_PREPARE, LQCD_HOST_SYNC, LQCD_NORMAL_OP,
+                               LQCD_SOLVE, host_sync, span)
 
 _INNER_DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16,
                  "float64": torch.float64}
@@ -36,6 +49,11 @@ def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.vdot(a.reshape(-1), b.reshape(-1)).real
 
 
+def _read(t: torch.Tensor):
+    """A 0-dim tensor read back to the host, as an ``lqcd.host_sync``."""
+    return host_sync(t, LQCD_HOST_SYNC)
+
+
 def cg_solve(matvec: Callable[[torch.Tensor], torch.Tensor], b: torch.Tensor,
              *, tol: float = 1e-6, max_iters: int = 1000) -> CGResult:
     """CG for hermitian positive-definite ``matvec``."""
@@ -45,17 +63,27 @@ def cg_solve(matvec: Callable[[torch.Tensor], torch.Tensor], b: torch.Tensor,
     p = r
     rs = _dot(r, r)
     it = 0
-    while it < max_iters and bool(torch.sqrt(rs) > tol * b_norm):
-        ap = matvec(p)
-        alpha = rs / torch.clamp(_dot(p, ap), min=1e-30)
-        x = x + alpha * p
-        r = r - alpha * ap
-        rs_new = _dot(r, r)
-        beta = rs_new / torch.clamp(rs, min=1e-30)
-        p = r + beta * p
-        rs = rs_new
-        it += 1
-    rel = float(torch.sqrt(rs) / torch.clamp(b_norm, min=1e-30))
+
+    def more():
+        return it < max_iters and _read(torch.sqrt(rs) > tol * b_norm)
+
+    go = more()
+    while go:
+        # an iteration's span ends with its stopping test, which waits
+        # for its work on the device
+        with span(LQCD_CG_ITER):
+            with span(LQCD_NORMAL_OP):
+                ap = matvec(p)
+            alpha = rs / torch.clamp(_dot(p, ap), min=1e-30)
+            x = x + alpha * p
+            r = r - alpha * ap
+            rs_new = _dot(r, r)
+            beta = rs_new / torch.clamp(rs, min=1e-30)
+            p = r + beta * p
+            rs = rs_new
+            it += 1
+            go = more()
+    rel = _read(torch.sqrt(rs) / torch.clamp(b_norm, min=1e-30))
     return CGResult(x, it, rel, rel <= tol)
 
 
@@ -70,7 +98,7 @@ def solve_wilson(U: torch.Tensor, b: torch.Tensor, kappa: float, *,
     res = cg_solve(normal_op, rhs, tol=tol, max_iters=max_iters)
     # report the true residual of M x = b
     true_r = b - wilson_matvec(U, res.x, kappa)
-    rel = float(torch.sqrt(_dot(true_r, true_r)) / torch.sqrt(_dot(b, b)))
+    rel = _read(torch.sqrt(_dot(true_r, true_r)) / torch.sqrt(_dot(b, b)))
     return CGResult(res.x, res.iters, rel, rel <= tol * 10)
 
 
@@ -128,77 +156,81 @@ def solve_wilson_eo(U: torch.Tensor, b: torch.Tensor, kappa: float, *,
     gathered ``x_e`` (the JAX function hands its still-sharded ``x_e`` to
     the one-device reconstruction, which fails there).
     """
-    U_e, U_o = pack_gauge(U)
-    b_e, b_o = eo_pack(b, 0), eo_pack(b, 1)
-    b_norm = float(torch.sqrt(_dot(b, b)))
-    # no low-precision pass gets below its own roundoff; full precision
-    # drives straight to tol in one outer sweep
-    eta = inner_tol if inner_dtype is not None else tol
+    with span(LQCD_EO_PREPARE):
+        U_e, U_o = pack_gauge(U)
+        b_e, b_o = eo_pack(b, 0), eo_pack(b, 1)
+        b_norm = _read(torch.sqrt(_dot(b, b)))
+        # no low-precision pass gets below its own roundoff; full precision
+        # drives straight to tol in one outer sweep
+        eta = inner_tol if inner_dtype is not None else tol
 
-    if mesh is not None:
-        from repro_torch.lqcd.multichip_eo import ShardedWilsonEO
-        hi = ShardedWilsonEO(U_e, U_o, kappa, mesh)
-        # the inner CG streams the *rounded* gauge field, like the
-        # one-device normal_lo path
-        lo = hi if inner_dtype is None else ShardedWilsonEO(
-            _round_complex(U_e, inner_dtype), _round_complex(U_o, inner_dtype),
-            kappa, mesh)
-        rhs_e = hi.rhs(b_e, b_o)
-        schur, schur_dagger = hi.schur, hi.schur_dagger
+        if mesh is not None:
+            from repro_torch.lqcd.multichip_eo import ShardedWilsonEO
+            hi = ShardedWilsonEO(U_e, U_o, kappa, mesh)
+            # the inner CG streams the *rounded* gauge field, like the
+            # one-device normal_lo path
+            lo = hi if inner_dtype is None else ShardedWilsonEO(
+                _round_complex(U_e, inner_dtype),
+                _round_complex(U_o, inner_dtype), kappa, mesh)
+            rhs_e = hi.rhs(b_e, b_o)
+            schur, schur_dagger = hi.schur, hi.schur_dagger
 
-        def run_inner(rhs_n, cap):
-            return lo.cg_normal(rhs_n, tol=eta, max_iters=cap,
-                                inner_dtype=inner_dtype)
-    else:
-        rhs_e = eo_rhs(U_e, U_o, b_e, b_o, kappa)
-
-        def schur(v):
-            return schur_matvec(U_e, U_o, v, kappa)
-
-        def schur_dagger(v):
-            return schur_matvec_dagger(U_e, U_o, v, kappa)
-
-        if inner_dtype is not None:
-            U_e_lo = _round_complex(U_e, inner_dtype)
-            U_o_lo = _round_complex(U_o, inner_dtype)
-
-            def normal_lo(v):
-                v = _round_complex(v, inner_dtype)
-                av = schur_matvec(U_e_lo, U_o_lo, v, kappa)
-                av = _round_complex(av, inner_dtype)
-                out = schur_matvec_dagger(U_e_lo, U_o_lo, av, kappa)
-                return _round_complex(out, inner_dtype)
+            def run_inner(rhs_n, cap):
+                return lo.cg_normal(rhs_n, tol=eta, max_iters=cap,
+                                    inner_dtype=inner_dtype)
         else:
-            def normal_lo(v):
-                return schur_dagger(schur(v))
+            rhs_e = eo_rhs(U_e, U_o, b_e, b_o, kappa)
 
-        def run_inner(rhs_n, cap):
-            return cg_solve(normal_lo, rhs_n, tol=eta, max_iters=cap)
+            def schur(v):
+                return schur_matvec(U_e, U_o, v, kappa)
+
+            def schur_dagger(v):
+                return schur_matvec_dagger(U_e, U_o, v, kappa)
+
+            if inner_dtype is not None:
+                U_e_lo = _round_complex(U_e, inner_dtype)
+                U_o_lo = _round_complex(U_o, inner_dtype)
+
+                def normal_lo(v):
+                    v = _round_complex(v, inner_dtype)
+                    av = schur_matvec(U_e_lo, U_o_lo, v, kappa)
+                    av = _round_complex(av, inner_dtype)
+                    out = schur_matvec_dagger(U_e_lo, U_o_lo, av, kappa)
+                    return _round_complex(out, inner_dtype)
+            else:
+                def normal_lo(v):
+                    return schur_dagger(schur(v))
+
+            def run_inner(rhs_n, cap):
+                return cg_solve(normal_lo, rhs_n, tol=eta, max_iters=cap)
 
     x_e = torch.zeros_like(rhs_e)
     r_s = rhs_e                              # Schur-system residual
     total_inner = 0
     outer = 0
     while outer < max_outer and total_inner < max_iters:
-        rel = float(torch.sqrt(_dot(r_s, r_s))) / max(b_norm, 1e-30)
+        rel = _read(torch.sqrt(_dot(r_s, r_s))) / max(b_norm, 1e-30)
         if rel <= tol:
             break
-        # inner CG on the defect equation A†A e = A† r_s, reduced precision.
-        # Cap each low-precision restart so a stalled inner solve (roundoff
-        # plateau above inner_tol) can't eat the whole budget in one round.
-        remaining = max_iters - total_inner
-        round_cap = (remaining if inner_dtype is None
-                     else min(remaining, max(10, max_iters // 5)))
-        inner = run_inner(schur_dagger(r_s), round_cap)
-        total_inner += inner.iters
-        x_e = x_e + inner.x
-        r_s = rhs_e - schur(x_e)             # recompute in full precision
-        outer += 1
+        with span(LQCD_EO_OUTER):
+            # inner CG on the defect equation A†A e = A† r_s, reduced
+            # precision.  Cap each low-precision restart so a stalled inner
+            # solve (roundoff plateau above inner_tol) can't eat the whole
+            # budget in one round.
+            remaining = max_iters - total_inner
+            round_cap = (remaining if inner_dtype is None
+                         else min(remaining, max(10, max_iters // 5)))
+            inner = run_inner(schur_dagger(r_s), round_cap)
+            total_inner += inner.iters
+            x_e = x_e + inner.x
+            r_s = rhs_e - schur(x_e)         # recompute in full precision
+            outer += 1
 
-    x_o = reconstruct_odd(U_e, U_o, x_e, b_o, kappa)
-    x = eo_unpack(x_e, x_o)
-    true_r = b - wilson_matvec(U, x, kappa)
-    rel = float(torch.sqrt(_dot(true_r, true_r))) / max(b_norm, 1e-30)
+    with span(LQCD_EO_FINISH):
+        x_o = reconstruct_odd(U_e, U_o, x_e, b_o, kappa)
+        x = eo_unpack(x_e, x_o)
+        true_r = b - wilson_matvec(U, x, kappa)
+        rel = _read(torch.sqrt(_dot(true_r, true_r))) / max(b_norm, 1e-30)
     return EOCGResult(x, total_inner, outer, rel, rel <= tol)
 
 
@@ -216,11 +248,13 @@ def solve_dirac(U: torch.Tensor, b: torch.Tensor, kappa: float, cfg, *,
         if mesh is not None:
             raise ValueError("mesh= requires an even-odd preconditioner "
                              "(cfg.preconditioner != 'none')")
-        return solve_wilson(U, b, kappa, tol=cfg.tol,
-                            max_iters=cfg.max_iters)
+        with span(LQCD_SOLVE):
+            return solve_wilson(U, b, kappa, tol=cfg.tol,
+                                max_iters=cfg.max_iters)
     # float32 inner == working precision: not a mixed-precision solve
     inner = _INNER_DTYPES[cfg.inner_dtype] if cfg.mixed_precision else None
-    return solve_wilson_eo(U, b, kappa, tol=cfg.tol,
-                           max_iters=cfg.max_iters, inner_dtype=inner,
-                           inner_tol=cfg.inner_tol, max_outer=cfg.max_outer,
-                           mesh=mesh)
+    with span(LQCD_SOLVE):
+        return solve_wilson_eo(U, b, kappa, tol=cfg.tol,
+                               max_iters=cfg.max_iters, inner_dtype=inner,
+                               inner_tol=cfg.inner_tol,
+                               max_outer=cfg.max_outer, mesh=mesh)
