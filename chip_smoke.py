@@ -237,6 +237,11 @@ REPLACES = {"dslash_eo_split": "src/repro/kernels/dslash/kernel.py:180",
             "dslash_split": "src/repro/kernels/dslash/kernel.py:217"}
 GEMM_SOURCE = "src/repro_torch/kernels/dgemm/csrc/dgemm.cu"
 GEMM_REPLACES = "src/repro/kernels/dgemm/kernel.py:30"
+PANEL_SOURCE = "src/repro_torch/kernels/panel/csrc/panel.cu"
+# phase 8b: the panel kernel against the plain panel at HPL's shapes, max
+# |dlu| over max|lu|; rounding alone stays far below it, a wrong swap or
+# update far above
+PANEL_NORMWISE = 1e-4
 # tests/test_kernels.py::test_dgemm_sweep: shapes (m, n, k), tolerances
 GEMM_SWEEP = [(128, 128, 128), (256, 128, 384), (512, 256, 128)]
 GEMM_RAGGED = (1000, 333, 259)
@@ -2381,12 +2386,14 @@ def main() -> int:
                                       tune_dgemm_tiles, tune_hpl_blocking)
     from repro_torch.configs.hpl import DEFAULT_HPL, HPLConfig
     from repro_torch.hpl import blocked_lu, linpack_run, lu_solve
+    from repro_torch.hpl import lu as TLU
     from repro_torch.kernels import _build
     from repro_torch.kernels.timing import bound, timed_ms
     from repro_torch.kernels.dgemm import kernel as G
     from repro_torch.kernels.dgemm import ops as GO
     from repro_torch.kernels.dgemm.ref import dgemm_ref, dgemm_update_ref_
     from repro_torch.kernels.dslash import kernel as K
+    from repro_torch.kernels.panel import kernel as PK
     from repro_torch.kernels.dslash.ref import (dslash_eo_split_ref,
                                                 dslash_split_ref, to_split)
     from repro_torch.kernels.rmsnorm import bench as RB
@@ -2434,10 +2441,10 @@ def main() -> int:
           f"versions must run in full f32)")
 
     # 2. build
-    families = ("dslash", "dgemm", "rmsnorm", "ssd_chunk")
+    families = ("dslash", "dgemm", "rmsnorm", "ssd_chunk", "panel")
     t0 = time.perf_counter()
     _build.build(families)
-    for mod in (K, G, RK, SK):
+    for mod in (K, G, RK, SK, PK):
         mod._lib()
     print(f"[2] built "
           f"{', '.join(_build.library_path(f).name for f in families)} in "
@@ -2664,10 +2671,11 @@ def main() -> int:
     torch.cuda.synchronize()
     K.reset_launches()
     G.reset_launches()
+    PK.reset_launches()
     t0 = time.perf_counter()
     res = linpack_run(cfg)
     total = time.perf_counter() - t0
-    hpl_launches = {**K.LAUNCHES, **G.LAUNCHES}
+    hpl_launches = {**K.LAUNCHES, **G.LAUNCHES, **PK.LAUNCHES}
     print(f"[8] linpack_run(n={cfg.n}, block={cfg.block}, lookahead="
           f"{cfg.lookahead}): scaled residual {res.residual:.4e}, passed "
           f"{res.passed}, factorization {res.wall_s:.3f} s, "
@@ -2679,6 +2687,8 @@ def main() -> int:
           f"dgemm launched {expect} times on the HPL path, all 128 x 128")
     check(hpl_launches["dslash_split"] == hpl_launches["dslash_eo_split"]
           == 0, "the HPL path launches no D-slash")
+    check(hpl_launches["panel_lu"] == hpl_launches["laswp"] == steps,
+          f"the panel and swap kernels launched {steps} times each")
     del a_big
     torch.cuda.empty_cache()
     # one matrix on the CPU (plain) and on the card (kernel).  Seed 20's
@@ -2709,6 +2719,95 @@ def main() -> int:
     t0 = time.perf_counter()
     hpl_profile(blocked_lu, randn(HPL_PROFILE_N, HPL_PROFILE_N))
     print(f"[8] the profiled phase took {time.perf_counter() - t0:.1f} s")
+
+    # 8b. the panel kernels against their plain versions at the path's
+    # shapes: the panel of an HPL_N x HPL_N matrix at k0 = 0 and n / 2
+    a_big = randn(HPL_N, HPL_N)
+    panel_rec = {"panel_lu": {}, "laswp": {}}
+    for k0 in (0, HPL_N // 2):
+        k1, m = k0 + HPL_NB, HPL_N - k0
+        got, want = a_big.clone(), a_big.clone()
+        gp = torch.empty(HPL_NB, dtype=torch.int32, device=dev)
+        wp = torch.empty_like(gp)
+        PK.panel_lu_(got, k0, HPL_NB, gp)
+        TLU._panel_factor(want, k0, HPL_NB, wp)
+        torch.cuda.synchronize()
+        diff = float((got[k0:, k0:k1] - want[k0:, k0:k1]).abs().max())
+        rel = diff / float(want[k0:, k0:k1].abs().max())
+        panel_only = got.clone()
+        panel_only[k0:, k0:k1] = a_big[k0:, k0:k1]
+        check(torch.equal(gp, wp), f"[8b] k0 = {k0}: the panel kernel's "
+              f"pivots equal the plain panel's")
+        check(rel <= PANEL_NORMWISE, f"[8b] k0 = {k0}: the panel within "
+              f"{PANEL_NORMWISE:.0e} of max|lu| of the plain panel's")
+        check(torch.equal(panel_only, a_big),
+              f"[8b] k0 = {k0}: the panel kernel wrote only the panel")
+        del panel_only
+        # the swaps on the other columns, bit for bit
+        swapped = got.clone()
+        PK.laswp_(swapped, k0, HPL_NB, gp)
+        TLU._swap_rest(got, k0, HPL_NB, gp)
+        torch.cuda.synchronize()
+        check(torch.equal(swapped, got), f"[8b] k0 = {k0}: laswp_ equals "
+              f"the plain swaps bit for bit")
+        perm = list(range(HPL_N))
+        for j, p in enumerate(gp.tolist()):
+            perm[k0 + j], perm[p] = perm[p], perm[k0 + j]
+        moved = sum(i != r for i, r in enumerate(perm))
+        check(moved > 0, f"[8b] k0 = {k0}: the swaps moved rows")
+        del swapped, got
+        # times: each factorization on the unfactored panel, put back before
+        # every call (that copy's time taken apart and subtracted), so
+        # that it finds the pivots above; the swaps again with those pivots
+        panel, fresh = want[k0:, k0:k1], a_big[k0:, k0:k1]
+        tp = torch.empty_like(gp)
+        copy_ms = timed_ms(lambda: panel.copy_(fresh), reps=20, warmup=2)
+        ms = timed_ms(lambda: (panel.copy_(fresh),
+                               PK.panel_lu_(want, k0, HPL_NB, tp)),
+                      reps=20, warmup=2) - copy_ms
+        check(torch.equal(tp, gp), f"[8b] k0 = {k0}: the timed panel kernel "
+              f"found the same pivots")
+        plain_ms = timed_ms(lambda: (panel.copy_(fresh),
+                                     TLU._panel_factor(want, k0, HPL_NB, tp)),
+                            reps=2, warmup=1, host_paced_ok=True) - copy_ms
+        flops = sum((m - j - 1) * (1 + 2 * (HPL_NB - j - 1))
+                    for j in range(HPL_NB))
+        b_ms, b_by = bound([panel, panel], flops, 1)
+        panel_rec["panel_lu"][k0] = {
+            "shape": [m, HPL_NB], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": diff,
+            "normwise_err": rel}
+        print(f"[8b] panel_lu_ at k0 = {k0} ({m} x {HPL_NB} of {HPL_N}^2): "
+              f"pivots equal, max|dlu| {diff:.3e} ({rel:.2e} of max|lu|); "
+              f"{ms:.3f} ms, {100 * b_ms / ms:.1f}% of the {b_ms:.4f} ms "
+              f"{b_by} bound; plain {plain_ms:.1f} ms")
+        ms = timed_ms(lambda: PK.laswp_(want, k0, HPL_NB, gp), reps=20,
+                      warmup=2)
+        plain_ms = timed_ms(lambda: TLU._swap_rest(want, k0, HPL_NB, gp),
+                            reps=2, warmup=1, host_paced_ok=True)
+        nbytes = 2 * moved * (HPL_N - HPL_NB) * want.element_size()
+        b_ms = nbytes / hw.HBM_BW * 1e3
+        panel_rec["laswp"][k0] = {
+            "rows_moved": moved, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": "bytes", "max_abs_err": 0.0}
+        print(f"[8b] laswp_ at k0 = {k0}: bit-equal to the plain swaps; "
+              f"{moved} rows moved over {HPL_N - HPL_NB} columns, "
+              f"{ms * 1e3:.1f} us, {100 * b_ms / ms:.1f}% of the "
+              f"{b_ms * 1e3:.1f} us bytes bound; plain {plain_ms:.1f} ms")
+        del want
+    del a_big
+    torch.cuda.empty_cache()
+    for name, by_k0 in panel_rec.items():
+        first = by_k0[0]
+        records.append({"name": name, "route": "cuda",
+                        "source": PANEL_SOURCE, "replaces": None,
+                        "launches": hpl_launches[name],
+                        "max_abs_err": max(r["max_abs_err"]
+                                           for r in by_k0.values()),
+                        "ms": first["ms"], "plain_ms": first["plain_ms"],
+                        "bound_ms": first["bound_ms"],
+                        "bound_by": first["bound_by"], "library_ms": None,
+                        "shapes": {f"k0={k0}": r for k0, r in by_k0.items()}})
 
     # 9. the time of step 0's larger update (the rest, after the next
     # panel's columns) at full size, on views of the n x n matrix
@@ -3152,7 +3251,9 @@ def main() -> int:
           and abs(cal.energy_j - cal.busy_w * cal.wall_s)
           <= 1e-9 * cal.energy_j, "calibration joules = busy W x wall")
 
-    hpl_cfg = HPLConfig(n=HPL_N, block=HPL_NB)
+    # nvidia-smi samples every 100 ms and the window needs ten samples:
+    # HPL at n = 32768 takes ~0.8 s since its panel became a kernel
+    hpl_cfg = HPLConfig(n=3 * HPL_N // 2, block=HPL_NB)
     steps = hpl_cfg.n // hpl_cfg.block
     for mod in (K, G):
         mod.reset_launches()
@@ -3641,14 +3742,14 @@ def main() -> int:
                       mtbf_s=SIM_MTBF_S, shape=1.0, repair_s=SIM_REPAIR_S),
                   seed=SIM_SEED, checkpoint=CheckpointPolicy())
     plain_sim = simulate(sim_arrivals(), **sim_kw)
-    for mod in (K, G, RK, SK):
+    for mod in (K, G, RK, SK, PK):
         mod.reset_launches()
     t0 = time.perf_counter()
     ex_sim = simulate(sim_arrivals(), execute=True, **sim_kw)
     torch.cuda.synchronize()
     sim_wall = time.perf_counter() - t0
     sim_launches = {**K.LAUNCHES, **G.LAUNCHES, **RK.LAUNCHES,
-                    **SK.LAUNCHES}
+                    **SK.LAUNCHES, **PK.LAUNCHES}
 
     def sim_view(r):
         tr = r.trace
@@ -3701,6 +3802,8 @@ def main() -> int:
             n_gemm = (steps16 - 1) + (steps16 - 2)
             want16["dgemm"] += n_gemm
             want16["dgemm_128x128"] += n_gemm
+            want16["panel_lu"] += steps16
+            want16["laswp"] += steps16
         else:
             check(r.details["converged"]
                   and r.details["rel_residual"] <= 1e-6,
@@ -3710,8 +3813,9 @@ def main() -> int:
                                           + 2)
             want16["dslash_split"] += 1
     print(f"[16a] launches {sim_launches} (want {want16})")
-    check(sim_launches == want16, "B1-B3 launched as the executed "
-                                  "workloads' steps and iterations imply")
+    check(sim_launches == want16, "B1-B3 and the panel kernels launched "
+                                  "as the executed workloads' steps and "
+                                  "iterations imply")
 
     # 16b. trace replay with executed tokens, mamba2-370m at full width
     cost = ServeCostModel(ARCH, max_batch=REPLAY_BATCH,
@@ -3726,14 +3830,14 @@ def main() -> int:
     bare = ContinuousBatchingEngine(cost).replay(requests)
     runtime = ExecutedGroupRuntime(ARCH, smoke=False, seed=REPLAY_SEED,
                                    device="cuda")
-    for mod in (K, G, RK, SK):
+    for mod in (K, G, RK, SK, PK):
         mod.reset_launches()
     t0 = time.perf_counter()
     res16 = ContinuousBatchingEngine(cost, runtime=runtime).replay(requests)
     torch.cuda.synchronize()
     replay_wall = time.perf_counter() - t0
     replay_launches = {**K.LAUNCHES, **G.LAUNCHES, **RK.LAUNCHES,
-                       **SK.LAUNCHES}
+                       **SK.LAUNCHES, **PK.LAUNCHES}
     tr_a, tr_b = res16.trace, bare.trace
     same = (dataclasses.asdict(res16.stats) == dataclasses.asdict(bare.stats)
             and np.array_equal(tr_a.t, tr_b.t)

@@ -63,7 +63,7 @@ def linpack_run(cfg: HPLConfig, *, energy: Optional[EnergyConfig] = None,
     ``a`` and ``b`` are standard normal, drawn from a ``torch.Generator``
     on the device seeded with ``cfg.seed`` (not the JAX package's stream).
     ``wall_s`` is one factorization, ended by a synchronisation on the
-    card, with the GEMM library loaded beforehand.  ``useful_flops`` is
+    card, with the kernel libraries loaded beforehand.  ``useful_flops`` is
     HPL's 2/3 n^3; ``raw_flops`` counts the trailing-update flops this
     port executes on its shrinking windows, sum over steps of 2 nb t^2
     with t the trailing size, which is not the JAX package's count of its
@@ -91,7 +91,9 @@ def linpack_run(cfg: HPLConfig, *, energy: Optional[EnergyConfig] = None,
 
     if dev.type == "cuda":
         from repro_torch.kernels.dgemm import kernel
+        from repro_torch.kernels.panel import kernel as panel
         kernel._lib()                 # build and load before the clock
+        panel._lib()
         torch.cuda.synchronize(dev)
     t0 = time.perf_counter()
     res = blocked_lu(a, cfg.block, lookahead=cfg.lookahead)

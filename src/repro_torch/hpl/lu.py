@@ -3,7 +3,10 @@ lookahead: the counterpart of the JAX package's ``src/repro/hpl/lu.py``,
 computing the same function.
 
 Per block step (HPL-GPU, paper ref [1]):
-  1. panel factorization, column by column with row pivoting;
+  1. panel factorization, column by column with row pivoting, the rows
+     swapped within the panel's columns; then the panel's swaps applied,
+     in order, to the other columns (before anything reads them).  On the
+     card each is one hand-written kernel (``kernels/panel``);
   2. the triangular solve for the U block row;
   3. the trailing-matrix update ``A22 -= L21 @ U12``, which on the card is
      the hand-written GEMM kernel (``kernels/dgemm``).
@@ -28,6 +31,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.kernels.dgemm.ops import dgemm_update_
+from repro_torch.kernels.panel import kernel as panel_kernel
 from repro_torch.spans import (HPL_HOST_SYNC, HPL_LU, HPL_PANEL, HPL_SOLVE,
                                HPL_SOLVE_PERM, HPL_SOLVE_TRSV, HPL_TRSM,
                                HPL_UPDATE, HPL_UPDATE_NEXT, HPL_UPDATE_REST,
@@ -40,24 +44,46 @@ class LUResult(NamedTuple):
     n_steps: int
 
 
-def _panel_factor(a: torch.Tensor, k0: int, nb: int, piv: torch.Tensor,
-                  rows: torch.Tensor) -> None:
+def _panel_factor(a: torch.Tensor, k0: int, nb: int,
+                  piv: torch.Tensor) -> None:
     """Factor columns [k0, k0+nb) of ``a`` in place, with partial pivoting
-    over rows >= column and full-row swaps; write the pivot rows to
-    ``piv`` (nb,).  ``rows`` is ``arange(n)`` on ``a``'s device."""
+    over rows >= column, swapping the rows within these columns only;
+    write the pivot rows to ``piv`` (nb,)."""
     one = torch.ones((), dtype=a.dtype, device=a.device)
+    rows = torch.arange(a.shape[0], device=a.device)
+    panel = a[:, k0:k0 + nb]
     for j in range(nb):
         col = k0 + j
         # first maximum of |a[col:, col]|, as an absolute row (a tensor)
         p = torch.argmax(a[col:, col].abs()) + col
         piv[j] = p
         swap = torch.stack((rows[col], p))
-        a.index_copy_(0, swap, a.index_select(0, swap.flip(0)))
+        panel.index_copy_(0, swap, panel.index_select(0, swap.flip(0)))
         pivot = a[col, col]
         a[col + 1:, col].div_(torch.where(pivot.abs() < 1e-30, one, pivot))
         if j + 1 < nb:
             a[col + 1:, col + 1:k0 + nb].addr_(
                 a[col + 1:, col], a[col, col + 1:k0 + nb], alpha=-1)
+
+
+def _swap_rest(a: torch.Tensor, k0: int, nb: int, piv: torch.Tensor) -> None:
+    """Apply the panel's swaps (rows k0 + j and ``piv[j]``), in order, to
+    the columns of ``a`` outside [k0, k0+nb)."""
+    for j, p in enumerate(piv.tolist()):
+        for side in (a[:, :k0], a[:, k0 + nb:]):
+            side[[k0 + j, p]] = side[[p, k0 + j]]
+
+
+def _factor_panel(a: torch.Tensor, k0: int, nb: int,
+                  piv: torch.Tensor) -> None:
+    """The panel and its swaps: plain on the CPU, the two kernels on the
+    card (which raise on what they cannot run)."""
+    if a.device.type == "cpu":
+        _panel_factor(a, k0, nb, piv)
+        _swap_rest(a, k0, nb, piv)
+    else:
+        panel_kernel.panel_lu_(a, k0, nb, piv)
+        panel_kernel.laswp_(a, k0, nb, piv)
 
 
 def blocked_lu(a: torch.Tensor, nb: int, *, lookahead: int = 1) -> LUResult:
@@ -72,11 +98,10 @@ def blocked_lu(a: torch.Tensor, nb: int, *, lookahead: int = 1) -> LUResult:
     with span(HPL_LU):
         a = a.clone()
         piv = torch.empty((steps, nb), dtype=torch.int32, device=a.device)
-        rows = torch.arange(n, device=a.device)
         for k in range(steps):
             k0, k1 = k * nb, (k + 1) * nb
             with span(HPL_PANEL):
-                _panel_factor(a, k0, nb, piv[k], rows)
+                _factor_panel(a, k0, nb, piv[k])
             if k1 == n:
                 break
             with span(HPL_TRSM):

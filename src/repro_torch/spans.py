@@ -38,7 +38,7 @@ LQCD_HOST_SYNC = "lqcd.host_sync"        # each read-back to the host
 LQCD_EO_FINISH = "lqcd.eo.finish"        # odd reconstruction, true residual
 # HPL (hpl/lu.py)
 HPL_LU = "hpl.lu"                        # blocked_lu
-HPL_PANEL = "hpl.panel"                  # each _panel_factor
+HPL_PANEL = "hpl.panel"                  # each panel and its swaps
 HPL_TRSM = "hpl.trsm"                    # the U12 solve
 HPL_UPDATE = "hpl.update"                # the trailing update, lookahead 0
 HPL_UPDATE_NEXT = "hpl.update.next"      # the next panel's columns

@@ -14,10 +14,12 @@ torch = pytest.importorskip("torch")
 from repro_torch import convert  # noqa: E402
 from repro_torch.configs import lcsc_lqcd as TL  # noqa: E402
 from repro_torch.hpl import blocked_lu, lu_solve  # noqa: E402
+from repro_torch.hpl import lu as TLU  # noqa: E402
 from repro_torch.kernels.dgemm import kernel as G  # noqa: E402
 from repro_torch.kernels.dgemm import ops as gops  # noqa: E402
 from repro_torch.kernels.dgemm import ref as gref  # noqa: E402
 from repro_torch.kernels.dslash import kernel as K  # noqa: E402
+from repro_torch.kernels.panel import kernel as PK  # noqa: E402
 from repro_torch.kernels.rmsnorm import kernel as RMK  # noqa: E402
 from repro_torch.kernels.rmsnorm import ops as rmops  # noqa: E402
 from repro_torch.kernels.rmsnorm import ref as rmref  # noqa: E402
@@ -314,16 +316,179 @@ def test_blocked_lu_on_the_card_matches_the_cpu(cuda, lookahead):
     b = torch.from_numpy(rng.standard_normal(n).astype(np.float32))
     want = blocked_lu(a, nb, lookahead=lookahead)
     before = G.LAUNCHES["dgemm"]
+    panels = dict(PK.LAUNCHES)
     got = blocked_lu(a.to(cuda), nb, lookahead=lookahead)
     steps = n // nb
     expect = 2 * (steps - 1) - 1 if lookahead else steps - 1
     assert G.LAUNCHES["dgemm"] == before + expect
+    # one panel kernel and one swap kernel a panel
+    assert (PK.LAUNCHES["panel_lu"] - panels["panel_lu"]
+            == PK.LAUNCHES["laswp"] - panels["laswp"] == steps)
     assert torch.equal(got.piv.cpu(), want.piv)
     # f32 sums in another order (tests/test_torch_hpl.py's tolerance)
     torch.testing.assert_close(got.lu.cpu(), want.lu, rtol=5e-4, atol=5e-4)
     x = lu_solve(got, b.to(cuda), nb)
     torch.testing.assert_close(x.cpu(), lu_solve(want, b, nb), rtol=2e-2,
                                atol=2e-2)
+
+
+# HPL's panel kernel against the plain panel on the card: the same pivots,
+# the factors at tests/test_torch_hpl.py's tolerance (both round the
+# rank-1 update once an element, as an FMA, but need not agree on it).
+# Over 2048 columns the rounding grows past it for any two versions: the
+# plain panel on the CPU and on the card differ by 7.6e-3 there (max|lu|
+# 103), so that panel is held normwise, at 2e-4 of max|lu|.  Each panel is
+# also held to a float64 LU with the same pivots: no farther from it than
+# twice the plain panel (the kernel 6.1e-3, the plain 5.7e-3 at 2048).
+LU_TOL = dict(rtol=5e-4, atol=5e-4)
+WIDE_PANEL_NORMWISE = 2e-4
+
+
+def _plain_panel(a, nb):
+    piv = torch.empty(nb, dtype=torch.int32, device=a.device)
+    TLU._panel_factor(a, 0, nb, piv)
+    return piv
+
+
+def _kernel_panel(a, nb):
+    piv = torch.empty(nb, dtype=torch.int32, device=a.device)
+    before = PK.LAUNCHES["panel_lu"]
+    PK.panel_lu_(a, 0, nb, piv)
+    assert PK.LAUNCHES["panel_lu"] == before + 1
+    return piv
+
+
+def _f64_panel(a, piv, nb):
+    """The panel's LU in float64 with the given pivots."""
+    a = a[:, :nb].double().clone()
+    for j, p in enumerate(piv.tolist()):
+        a[[j, p]] = a[[p, j]]
+        a[j + 1:, j] /= a[j, j]
+        a[j + 1:, j + 1:] -= torch.outer(a[j + 1:, j], a[j, j + 1:])
+    return a
+
+
+@pytest.mark.parametrize("m,nb", [(192, 32), (1000, 16), (4096, 256),
+                                  (4096, 2048)])
+def test_panel_kernel_matches_plain(cuda, m, nb):
+    """A panel of m rows and nb columns with two columns more on its right,
+    which the kernel must not touch."""
+    rng = np.random.default_rng(m + nb)
+    a = torch.from_numpy(rng.standard_normal((m, nb + 2))
+                         .astype(np.float32)).to(cuda)
+    want = a.clone()
+    want_piv = _plain_panel(want, nb)
+    got = a.clone()
+    got_piv = _kernel_panel(got, nb)
+    torch.cuda.synchronize()
+    assert torch.equal(got_piv.cpu(), want_piv.cpu())
+    if nb <= 256:
+        torch.testing.assert_close(got[:, :nb].cpu(), want[:, :nb].cpu(),
+                                   **LU_TOL)
+    else:
+        scale = want[:, :nb].abs().max()
+        assert (got - want)[:, :nb].abs().max() <= WIDE_PANEL_NORMWISE * scale
+    exact = _f64_panel(a, want_piv, nb)
+    err = (got[:, :nb].double() - exact).abs().max()
+    assert err <= 2 * (want[:, :nb].double() - exact).abs().max()
+    assert torch.equal(got[:, nb:], a[:, nb:])
+
+
+def test_panel_kernel_on_a_view(cuda):
+    """The panel at row and column k0 of a larger matrix: rows above it
+    and columns beside it stay as they are; the pivots are rows of the
+    matrix."""
+    rng = np.random.default_rng(3)
+    n, k0, nb = 640, 128, 64
+    a = torch.from_numpy(rng.standard_normal((n, n)).astype(np.float32)
+                         ).to(cuda)
+    want = a.clone()
+    want_piv = torch.empty(nb, dtype=torch.int32, device=cuda)
+    TLU._panel_factor(want, k0, nb, want_piv)
+    got = a.clone()
+    got_piv = torch.empty(nb, dtype=torch.int32, device=cuda)
+    PK.panel_lu_(got, k0, nb, got_piv)
+    torch.cuda.synchronize()
+    assert torch.equal(got_piv, want_piv)
+    assert int(got_piv.min()) >= k0
+    torch.testing.assert_close(got[:, k0:k0 + nb].cpu(),
+                               want[:, k0:k0 + nb].cpu(), **LU_TOL)
+    outside = torch.ones(n, n, dtype=torch.bool, device=cuda)
+    outside[k0:, k0:k0 + nb] = False
+    assert torch.equal(got[outside], a[outside])
+
+
+def test_panel_kernel_takes_the_first_of_equal_maxima(cuda):
+    """Equal |a| in a column, of either sign, on rows that different
+    blocks of the grid hold: the lowest row wins, as torch.argmax's."""
+    rng = np.random.default_rng(5)
+    m, nb = 4096, 64
+    a = rng.standard_normal((m, nb)).astype(np.float32)
+    a[:, 0] = np.clip(a[:, 0], -2, 2)
+    a[[3001, 77, 2050, 999], 0] = [9, -9, 9, -9]
+    t = torch.from_numpy(a).to(cuda)
+    want = t.clone()
+    want_piv = _plain_panel(want, nb)
+    got = t.clone()
+    got_piv = _kernel_panel(got, nb)
+    assert got_piv[0].item() == 77
+    assert torch.equal(got_piv, want_piv)
+    torch.testing.assert_close(got.cpu(), want.cpu(), **LU_TOL)
+
+
+def test_panel_kernel_on_a_zero_column(cuda):
+    """A zero column divides by 1 (the 1e-30 guard): no inf or NaN, and
+    the plain panel's factors."""
+    rng = np.random.default_rng(6)
+    m, nb = 1000, 48
+    a = rng.standard_normal((m, nb)).astype(np.float32)
+    a[:, 5] = 0
+    a[:, 40] = 1e-31 * a[:, 40]
+    t = torch.from_numpy(a).to(cuda)
+    want = t.clone()
+    want_piv = _plain_panel(want, nb)
+    got = t.clone()
+    got_piv = _kernel_panel(got, nb)
+    assert torch.isfinite(got).all()
+    assert got_piv[5].item() == 5
+    assert torch.equal(got_piv, want_piv)
+    torch.testing.assert_close(got.cpu(), want.cpu(), **LU_TOL)
+
+
+@pytest.mark.parametrize("n,k0,nb", [(192, 64, 32), (1000, 200, 40),
+                                     (4096, 0, 2048), (4096, 2048, 2048),
+                                     (2048, 768, 256)])
+def test_laswp_kernel_equals_plain_swaps(cuda, n, k0, nb):
+    """The swaps of a factored panel, on the columns outside it, bit for
+    bit as the plain row swaps; the panel's columns stay."""
+    rng = np.random.default_rng(n + k0)
+    a = torch.from_numpy(rng.standard_normal((n, n)).astype(np.float32)
+                         ).to(cuda)
+    piv = torch.empty(nb, dtype=torch.int32, device=cuda)
+    PK.panel_lu_(a, k0, nb, piv)
+    want = a.clone()
+    TLU._swap_rest(want, k0, nb, piv)
+    got = a.clone()
+    before = PK.LAUNCHES["laswp"]
+    PK.laswp_(got, k0, nb, piv)
+    assert PK.LAUNCHES["laswp"] == before + 1
+    assert torch.equal(got, want)
+    assert not torch.equal(got, a)
+
+
+def test_panel_kernels_refuse_what_they_cannot_run(cuda):
+    a = torch.zeros(64, 64, device=cuda)
+    piv = torch.empty(16, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        PK.panel_lu_(a, 0, 16, piv.cpu())
+    with pytest.raises(ValueError, match="one CUDA device"):
+        PK.laswp_(a.cpu(), 0, 16, piv.cpu())
+    with pytest.raises(TypeError):
+        PK.panel_lu_(a.double(), 0, 16, piv)
+    with pytest.raises(ValueError, match="no 16-column panel"):
+        PK.panel_lu_(a, 56, 16, piv)
+    with pytest.raises(ValueError, match="row-major"):
+        PK.laswp_(a.t(), 0, 16, piv)
 
 
 # the GEMM's two tiles: the 64-row tile gives the 128-row tile's bits (both

@@ -29,7 +29,9 @@ from repro_torch.config import EnergyConfig  # noqa: E402
 from repro_torch.configs import hpl as TH  # noqa: E402
 from repro_torch.hpl import (blocked_lu, linpack_residual,  # noqa: E402
                              linpack_run, lu_solve)
+from repro_torch.hpl import lu as TLU  # noqa: E402
 from repro_torch.kernels.dgemm import kernel as K  # noqa: E402
+from repro_torch.kernels.panel import kernel as PK  # noqa: E402
 from repro_torch.power.trace import TraceRecorder  # noqa: E402
 
 LU_TOL = dict(rtol=5e-4, atol=5e-4)
@@ -65,6 +67,57 @@ def test_blocked_lu_matches_jax(n, nb, lookahead):
     assert got.piv.dtype == torch.int32 and tuple(got.piv.shape) == piv.shape
     np.testing.assert_array_equal(got.piv.numpy(), piv)
     np.testing.assert_allclose(got.lu.numpy(), lu, **LU_TOL)
+
+
+def _full_row_panel(a, k0, nb, piv):
+    """The panel with each swap moving the two full rows at once, the
+    order the port's panel had before the swaps of the other columns were
+    deferred to after it."""
+    one = torch.ones((), dtype=a.dtype)
+    rows = torch.arange(a.shape[0])
+    for j in range(nb):
+        col = k0 + j
+        p = torch.argmax(a[col:, col].abs()) + col
+        piv[j] = p
+        swap = torch.stack((rows[col], p))
+        a.index_copy_(0, swap, a.index_select(0, swap.flip(0)))
+        pivot = a[col, col]
+        a[col + 1:, col].div_(torch.where(pivot.abs() < 1e-30, one, pivot))
+        if j + 1 < nb:
+            a[col + 1:, col + 1:k0 + nb].addr_(
+                a[col + 1:, col], a[col, col + 1:k0 + nb], alpha=-1)
+
+
+@pytest.mark.parametrize("lookahead", [0, 1, 2])
+@pytest.mark.parametrize("n,nb", SIZES)
+def test_deferred_swaps_equal_full_row_swaps(n, nb, lookahead, monkeypatch):
+    """The panel's swaps within its columns, then the other columns
+    swapped after it, give the factors of full-row swaps bit for bit:
+    nothing reads the other columns during the panel."""
+    t = convert.matrix_from_numpy(_system(n, nb)[0], "cpu")
+    got = blocked_lu(t, nb, lookahead=lookahead)
+    monkeypatch.setattr(TLU, "_panel_factor", _full_row_panel)
+    monkeypatch.setattr(TLU, "_swap_rest", lambda *args: None)
+    want = blocked_lu(t, nb, lookahead=lookahead)
+    assert torch.equal(got.piv, want.piv)
+    assert torch.equal(got.lu, want.lu)
+
+
+@pytest.mark.parametrize("launch", [PK.panel_lu_, PK.laswp_])
+def test_panel_kernels_take_cuda_tensors_only(launch):
+    """The CPU takes the plain panel; the kernels' wrappers refuse a CPU
+    tensor before they load anything, and launch nothing."""
+    before = dict(PK.LAUNCHES)
+    a = torch.zeros(64, 64)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        launch(a, 0, 16, torch.zeros(16, dtype=torch.int32))
+    assert PK.LAUNCHES == before
+
+
+def test_blocked_lu_on_the_cpu_launches_no_panel_kernel():
+    before = dict(PK.LAUNCHES)
+    blocked_lu(convert.matrix_from_numpy(_system(128, 16)[0], "cpu"), 16)
+    assert PK.LAUNCHES == before
 
 
 def test_blocked_lu_leaves_its_input_alone():
