@@ -9,6 +9,10 @@ computed in the nearest precision below the configuration's:
 * HPL: the reference's blocked LU with the trailing updates' operands
   rounded to TF32 (the configuration states IEEE float32, TF32 off).
 
+Each driver carries its cell's control: its method ``use_control()``
+puts the control in the driver's timed path.  A new cell's control is so
+a part of its driver's file.
+
     python3 lcsc_bench/control.py --workload <cell> --side control \
         --seeds 11 12 13 [--items K]
 
@@ -24,7 +28,6 @@ import json
 import sys
 import time
 from pathlib import Path
-from types import SimpleNamespace
 
 ROOT = Path(__file__).resolve().parents[1]
 if __name__ == "__main__":
@@ -32,42 +35,15 @@ if __name__ == "__main__":
 
 import torch  # noqa: E402
 
-from lcsc_bench.reference import hpl as hpl_ref  # noqa: E402
-from lcsc_bench.reference import wilson  # noqa: E402
-
 ITEMS = 3
 
 
-class LQCDControl:
-    """``solve_dirac``'s place: the bfloat16 reference solve."""
-
-    def __init__(self):
-        self.op = self.U = None
-
-    def __call__(self, U, b, kappa, solver):
-        if self.U is not U:
-            self.op = wilson.WilsonEO(U, kappa, dtype=torch.complex64,
-                                      low=torch.bfloat16)
-            self.U = U
-        x, n = wilson.solve(self.op, b, solver.tol, solver.max_iters)
-        return SimpleNamespace(x=x.to(torch.complex64), iters=n,
-                               outer_iters=0, converged=True)
-
-
-def use_control(drv) -> None:
-    """Put the control in ``drv``'s timed path."""
-    if hasattr(drv, "factor"):
-        drv.factor = lambda a, nb, lookahead: a
-        drv.solve = lambda a, b, nb: hpl_ref.lu_solve(a, b, nb, tf32=True)
-    else:
-        drv.solve = LQCDControl()
-
-
-def readings(cell, seed: int, items: int, side: str, device: str) -> dict:
-    """The compared numbers of ``items`` items of one run's inputs."""
-    drv = cell.driver.Driver(cell.config, cell.traffic, seed, device)
+def readings(cell, seed: int, items: int, side: str, devices) -> dict:
+    """The compared numbers of ``items`` items of one run's inputs, on
+    the cards ``devices``."""
+    drv = cell.driver.Driver(cell.config, cell.traffic, seed, devices)
     if side == "control":
-        use_control(drv)
+        drv.use_control()
     drv.setup()
     kept = {i: drv.item(i)[1] for i in range(items)}
     return {k: v for k, (v, _) in drv.check(kept).items()}
@@ -81,14 +57,17 @@ def main(argv=None) -> int:
     ap.add_argument("--seeds", type=int, nargs="+", required=True)
     ap.add_argument("--items", type=int)
     args = ap.parse_args(argv)
-    if not torch.cuda.is_available():
-        print("the control is read on the CUDA device", file=sys.stderr)
-        return 2
     cell = specs.cell(args.workload, False)
+    if not torch.cuda.is_available() or \
+            torch.cuda.device_count() < cell.chips:
+        print(f"the control is read on {cell.chips} CUDA device(s)",
+              file=sys.stderr)
+        return 2
+    devices = [f"cuda:{i}" for i in range(cell.chips)]
     items = args.items or ITEMS
     for seed in args.seeds:
         t0 = time.perf_counter()
-        got = readings(cell, seed, items, args.side, "cuda")
+        got = readings(cell, seed, items, args.side, devices)
         print(json.dumps({"workload": args.workload, "side": args.side,
                           "seed": seed, "items": items, "readings": got,
                           "seconds": time.perf_counter() - t0}), flush=True)

@@ -21,15 +21,22 @@ SYSTEM = 2
 
 
 class Driver:
-    def __init__(self, cfg: dict, traffic: dict, seed: int, device: str):
+    def __init__(self, cfg: dict, traffic: dict, seed: int, devices):
         from repro_torch.hpl import blocked_lu, lu_solve
         self.factor, self.solve = blocked_lu, lu_solve   # the timed path
         self.cfg, self.traffic, self.seed = cfg, traffic, seed
-        self.device = torch.device(device)
+        (self.device,) = map(torch.device, devices)     # one card
         self.n, self.nb = int(cfg["n"]), int(cfg["nb"])
         self.lookahead = int(cfg["lookahead"])
         if cfg["dtype"] != "float32":
             raise ValueError("the program runs HPL in float32 only")
+
+    def use_control(self) -> None:
+        """Put the cell's control in the timed path: the reference's
+        blocked LU with the trailing updates' operands rounded to TF32
+        (the configuration states IEEE float32, TF32 off)."""
+        self.factor = lambda a, nb, lookahead: a
+        self.solve = lambda a, b, nb: reference.lu_solve(a, b, nb, tf32=True)
 
     def sync(self) -> None:
         if self.device.type == "cuda":

@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import random
 import time
+from types import SimpleNamespace
 
 import torch
 
@@ -27,19 +28,42 @@ from lcsc_bench.reference import wilson
 GAUGE, SOURCE, WORK = 0, 1, 2
 
 
+class LQCDControl:
+    """``solve_dirac``'s place in the control: the reference's even-odd
+    CGNE with every field rounded through bfloat16 (the configuration
+    states float32), given the normal operators the configuration allows
+    the program (``max_iters``)."""
+
+    def __init__(self):
+        self.op = self.U = None
+
+    def __call__(self, U, b, kappa, solver):
+        if self.U is not U:
+            self.op = wilson.WilsonEO(U, kappa, dtype=torch.complex64,
+                                      low=torch.bfloat16)
+            self.U = U
+        x, n = wilson.solve(self.op, b, solver.tol, solver.max_iters)
+        return SimpleNamespace(x=x.to(torch.complex64), iters=n,
+                               outer_iters=0, converged=True)
+
+
 class Driver:
-    def __init__(self, cfg: dict, traffic: dict, seed: int, device: str):
+    def __init__(self, cfg: dict, traffic: dict, seed: int, devices):
         from repro_torch.config import SolverConfig
         from repro_torch.lqcd import solve_dirac
         self.solve = solve_dirac           # the timed path
         self.cfg, self.traffic, self.seed = cfg, traffic, seed
-        self.device = torch.device(device)
+        (self.device,) = map(torch.device, devices)     # one card
         self.lattice = tuple(cfg["lattice"])
         self.kappa = float(cfg["kappa"])
         self.solver = SolverConfig(**cfg["solver"])
         self.volume = 1
         for s in self.lattice:
             self.volume *= s
+
+    def use_control(self) -> None:
+        """Put the cell's control (``LQCDControl``) in the timed path."""
+        self.solve = LQCDControl()
 
     def source(self, i: int) -> torch.Tensor:
         return inputs.spinor(mix(self.seed, SOURCE, i), self.lattice,

@@ -121,3 +121,15 @@ def rollup(events, t0_ns: int, t1_ns: int) -> dict:
             "idle_s": (t1_ns - t0_ns - busy_ns) / 1e9, "spans": names,
             "outside": {"idle_s": idle[n] / 1e9, "launches": launches[n]},
             "unmatched": unmatched}
+
+
+def of(rec: dict, name: str) -> dict | None:
+    """The rollup's record of the span ``name`` in a run record's
+    profiled stretch (``rec["trace"]["spans"]``, made by
+    ``trace.summarize``), or None where the run was not traced or the
+    stretch holds no such span."""
+    tr = rec.get("trace")
+    if tr is None:
+        return None
+    r = tr["spans"]["spans"].get(name)
+    return r if r and r["count"] else None

@@ -1,11 +1,15 @@
 """Find a cell's parts by the names in ``BENCHMARK.json``.
 
 * ``workloads/<cell>.json``: the cell's configuration, traffic and
-  driver;
+  driver, and ``tiny``, the configuration's keys changed for the CPU
+  tests' runs (``tests/conftest.py::tiny_run``);
 * ``configs/<config>.json``: the configuration as it is run;
 * ``traffic/<traffic>.json``: the traffic mix's parameters;
-* ``drivers/<driver>.py``: the entry point the cell drives (a class
-  ``Driver``);
+* ``drivers/<driver>.py``: the entry point the cell drives: a class
+  ``Driver(config, traffic, seed, devices)``, ``devices`` the cell's
+  cards (``cuda:0`` ... ``cuda:<chips - 1>``), and its method
+  ``use_control()`` puts the cell's control in its timed path
+  (``control.py``);
 * ``metrics/<metric>.py``: one reader for each metric (``read(rec)``);
   a metric that is another's quantity in other cells, under bounds of
   its own, takes that one's reader (``reader``).
@@ -66,6 +70,7 @@ class Cell:
     traffic: dict
     driver: object            # the driver's module
     metrics: list             # [(entry of BENCHMARK.json, reader module)]
+    tiny: dict                # the configuration's keys for the CPU tests
 
 
 def cell(name: str, trace: bool, *, bench: dict | None = None,
@@ -87,4 +92,4 @@ def cell(name: str, trace: bool, *, bench: dict | None = None,
         traffic=load_json(bench_dir / "traffic" / f"{wl['traffic']}.json"),
         driver=load_module(bench_dir / "drivers" / f"{wl['driver']}.py",
                            "lcsc_bench_driver_"),
-        metrics=metrics)
+        metrics=metrics, tiny=wl.get("tiny", {}))

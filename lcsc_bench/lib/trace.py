@@ -46,19 +46,31 @@ def _merge(intervals):
 
 
 def summarize(events, t0_ns: int, t1_ns: int) -> dict:
-    """``window_s`` (the stretch), ``busy_s`` (the union of the device's
-    activities inside it), ``ops`` ({name: [seconds, count]} of device
-    activities) and ``gaps`` ({label: seconds} of idle time, labelled by
-    the innermost host operation that ran at the middle of each gap, or
-    ``HOST_BETWEEN_OPS``)."""
+    """``window_s`` (the stretch), ``busy_s`` (the union of the device
+    activities inside it, over every card), ``busy_s_by_card`` ({card
+    index: the union of that card's activities}), ``ops`` ({name:
+    [seconds, count]} of device activities), ``gaps`` ({label: seconds}
+    of idle time, labelled by the innermost host operation that ran at
+    the middle of each gap, or ``HOST_BETWEEN_OPS``; a program span is a
+    host operation, so spans label the gaps they hold) and ``spans``
+    (``lib/spans.py``'s rollup of the same events).  A device-typed user
+    annotation (kineto's ``gpu_user_annotation`` range) is no device
+    activity and is skipped."""
     from torch.autograd import DeviceType
+
+    from lcsc_bench.lib.spans import rollup
     dev, host = [], []
+    by_card: dict[int, list] = {}
     ops: dict[str, list] = {}
     for e in events:
         s = e.start_ns()
         d = e.duration_ns()
         if e.device_type() == DeviceType.CUDA:
-            dev.append((max(s, t0_ns), min(s + d, t1_ns)))
+            if e.is_user_annotation():
+                continue
+            iv = (max(s, t0_ns), min(s + d, t1_ns))
+            dev.append(iv)
+            by_card.setdefault(e.device_index(), []).append(iv)
             rec = ops.setdefault(e.name(), [0.0, 0])
             rec[0] += d / 1e9
             rec[1] += 1
@@ -89,7 +101,12 @@ def summarize(events, t0_ns: int, t1_ns: int) -> dict:
         labels[label] = labels.get(label, 0.0) + (e - s) / 1e9
     return {"window_s": (t1_ns - t0_ns) / 1e9,
             "busy_s": sum(e - s for s, e in busy) / 1e9,
-            "ops": ops, "gaps": labels}
+            "busy_s_by_card": {
+                card: sum(e - s for s, e in _merge(
+                    [iv for iv in ivs if iv[1] > iv[0]])) / 1e9
+                for card, ivs in sorted(by_card.items())},
+            "ops": ops, "gaps": labels,
+            "spans": rollup(events, t0_ns, t1_ns)}
 
 
 def breakdown(summary: dict, top: int = 10) -> dict:

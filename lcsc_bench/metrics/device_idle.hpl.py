@@ -1,5 +1,7 @@
 """device_idle.hpl: the share of the profiled stretch of HPL runs in
-which no device activity ran, in %."""
+which no device activity ran, in %.  The program spans that hold its
+gaps label them: ``device_idle.hpl.*`` and the result line's
+``breakdown``."""
 
 
 def read(rec):

@@ -1,5 +1,7 @@
 """device_idle.solve: the share of the profiled stretch of solves in
-which no device activity ran, in %."""
+which no device activity ran, in %.  The program spans that hold its
+gaps label them: ``device_idle.solve.*`` and the result line's
+``breakdown``."""
 
 
 def read(rec):

@@ -8,15 +8,19 @@ Set-up (imports, kernels loaded or built, the inputs made, warm-up) is
 ``setup_s``.  The window then runs the cell's driver item after item (a
 solve, a factorization and solve) until ``--seconds`` have passed; the
 item in flight then is finished and the window ends with it.
-nvidia-smi samples the board's power beside it.  With ``--trace 1`` a
-profiled stretch of at least ``profile_seconds`` (whole items, one at
-least) follows the window.
+nvidia-smi samples the power of the cell's boards beside it.  The driver
+is given the cell's cards, ``cuda:0`` ... ``cuda:<chips - 1>``.  With
+``--trace 1`` a profiled stretch of at least ``profile_seconds`` (whole
+items, one at least) follows the window.
 Each answer is copied into a slot allocated in set-up; once the window
 has closed and the peak memory has been read, the kept answers (every
 one the slots hold) are judged against the plain reference, and the
 metrics are read from the record by ``metrics/<name>.py``.  The result
-line's ``kernels_built`` names the kernel libraries this run built (a
-checkout's first run, whose ``setup_s`` pays nvcc).
+line's ``device`` gives the peak memory of the fullest card and each
+card's beside it, and with ``--trace 1`` the busy seconds (the union of
+the cards' activities, as ``device_idle.*`` read it) and each card's.  Its ``kernels_built`` names the kernel
+libraries this run built (a checkout's first run, whose ``setup_s`` pays
+nvcc).
 
 The run fails, and prints no result, without a CUDA device, with fewer
 cards than the cell asks for, when the program cannot be imported, or
@@ -80,20 +84,36 @@ def kernel_libs() -> set:
     return {p.name for p in (ROOT / "build" / "kernels").glob("*.so")}
 
 
-def execute(cell, seed: int, seconds: float, trace: bool, *, device: str,
+def memory_peaks(devices, read) -> dict:
+    """``memory_peak_bytes``, the peak of the fullest of ``devices`` by
+    ``read(device)``, and each card's beside it."""
+    peaks = [int(read(d)) for d in devices]
+    return {"memory_peak_bytes": max(peaks),
+            "memory_peak_bytes_per_card": peaks}
+
+
+def busy_per_card(traced: dict, chips: int) -> list[float]:
+    """The busy seconds of each of the cell's cards, ``0`` ...
+    ``chips - 1``, in a profiled stretch (``trace.summarize``)."""
+    return [traced["busy_s_by_card"].get(i, 0.0) for i in range(chips)]
+
+
+def execute(cell, seed: int, seconds: float, trace: bool, *, devices,
             power, t_start: float = T_START) -> dict:
-    """Run ``cell`` (a ``spec.Cell``) and return the result line's
-    object, with the compared numbers under ``checks``."""
+    """Run ``cell`` (a ``spec.Cell``) on ``devices`` (its cards, or CPU
+    places) and return the result line's object, with the compared
+    numbers under ``checks``.  ``power()`` samples the cards' power."""
     import torch
 
     from lcsc_bench.lib import trace as traces
-    cuda = device == "cuda"
+    cuda = torch.device(devices[0]).type == "cuda"
 
     def sync():
         if cuda:
-            torch.cuda.synchronize()
+            for d in devices:
+                torch.cuda.synchronize(d)
 
-    drv = cell.driver.Driver(cell.config, cell.traffic, seed, device)
+    drv = cell.driver.Driver(cell.config, cell.traffic, seed, devices)
     with power() as ps:
         drv.setup()
         sample = Kept(int(cell.config["check"]["answers"]), seed,
@@ -109,7 +129,7 @@ def execute(cell, seed: int, seconds: float, trace: bool, *, device: str,
             sample.offer(i, answer)
         window_s = time.perf_counter() - t0
         e1 = time.time()
-    watts, sm_clock, n_samples = ps.window(e0, e1)
+    watts, sm_clock, n_samples, boards = ps.window(e0, e1)
     traced = None
     if trace:
         base = len(counters)
@@ -121,7 +141,8 @@ def execute(cell, seed: int, seconds: float, trace: bool, *, device: str,
                 traced_counters.append(drv.item(base + len(traced_counters))[0])
         traced = traces.summarize(prof["events"], prof["t0_ns"], prof["t1_ns"])
         traced["counters"] = traced_counters
-    peak = torch.cuda.max_memory_allocated() if cuda else 0
+    peaks = memory_peaks(devices, torch.cuda.max_memory_allocated if cuda
+                         else lambda d: 0)
     c0 = time.perf_counter()
     kept = sample.answers()
     checks = drv.check(kept)
@@ -130,6 +151,7 @@ def execute(cell, seed: int, seconds: float, trace: bool, *, device: str,
     rec = {"setup_s": setup_s, "window_s": window_s, "items": len(counters),
            "counters": counters, "watts": watts, "joules": watts * window_s,
            "sm_clock_mhz": sm_clock, "power_samples": n_samples,
+           "boards": boards,
            "trace": traced, "config": cell.config, **work}
     metrics = {}
     for entry, reader in cell.metrics:
@@ -139,19 +161,23 @@ def execute(cell, seed: int, seconds: float, trace: bool, *, device: str,
     failed = sum(1 for c in counters if c.get("failed"))
     correct = bool(counters) and failed == 0 and all(
         v <= lim for v, lim in checks.values())
-    dev = {"platform": "gpu" if cuda else device,
-           "kind": torch.cuda.get_device_name(0) if cuda else device,
-           "count": cell.chips, "memory_peak_bytes": peak}
+    dev = {"platform": "gpu" if cuda else "cpu",
+           "kind": torch.cuda.get_device_name(0) if cuda else "cpu",
+           "count": cell.chips, **peaks}
     out = {"correct": correct, "attempted": len(counters), "failed": failed,
            "metrics": metrics, "device": dev}
     if traced is not None:
         dev["busy_s"] = traced["busy_s"]
+        dev["busy_s_per_card"] = busy_per_card(traced, cell.chips)
         dev["window_s"] = traced["window_s"]
         out["breakdown"] = traces.breakdown(traced)
     out["checks"] = {k: {"value": v, "limit": lim}
                      for k, (v, lim) in checks.items()}
     notes = (f"{len(kept)} answers judged; the reference took "
-             f"{check_s:.2f} s; {drv.notes(rec)}")
+             f"{check_s:.2f} s; {drv.notes(rec)}; boards (W, MHz, "
+             f"samples): " + ", ".join(
+                 f"{b['board']} {b['watts']:.2f} {b['sm_clock_mhz']:.0f} "
+                 f"{b['samples']}" for b in boards))
     if traced is not None:
         walls = [c["wall_s"] for c in traced["counters"]]
         notes += (f"; profiled stretch: {len(walls)} items in "
@@ -177,9 +203,11 @@ def main(argv=None) -> int:
         print(f"{args.workload} needs {cell.chips} CUDA device(s); this "
               f"process sees {torch.cuda.device_count()}", file=sys.stderr)
         return 2
-    from lcsc_bench.lib.power import PowerSamples, card_limit
+    from lcsc_bench.lib.power import PowerSamples, boards, card_limit
+    devices = [f"cuda:{i}" for i in range(cell.chips)]
+    ids = boards(devices)
     out = execute(cell, args.seed, args.seconds, bool(args.trace),
-                  device="cuda", power=PowerSamples)
+                  devices=devices, power=lambda: PowerSamples(ids))
     bad = forbidden_modules()
     if bad:
         print(f"loaded once the window had closed: {', '.join(bad)}",
@@ -191,7 +219,7 @@ def main(argv=None) -> int:
     checks = out.pop("checks")
     out["kernels_built"] = sorted(kernel_libs() - libs)
     out["checks"] = checks
-    print(f"card (name, power.limit W): {card_limit()}; kernels built in "
+    print(f"card (name, power.limit W): {card_limit(ids)}; kernels built in "
           f"this run: {out['kernels_built'] or 'none'}; {notes}")
     for k, c in out["checks"].items():
         print(f"check {k}: {c['value']!r} limit {c['limit']!r}",

@@ -8,9 +8,10 @@ Set-up is the cell's driver's, warm-up included; then ``--items`` items
 (default: as many as the traffic's ``profile_seconds`` take, one at
 least) run under ``lib/trace.profiled``, as ``run.py``'s ``--trace 1``
 stretch does.  No window, no power samples, no check of the answers.
-Beside the rollup the line holds ``lib/trace.summarize``'s busy and
-window seconds of the same events and the items' counters.  It fails
-without a CUDA device.
+The rollup is the one ``lib/trace.summarize`` keeps under ``spans``,
+which the span metrics read; beside it the line holds ``summarize``'s
+busy and window seconds of the same events and the items' counters.  It
+fails without as many CUDA devices as the cell asks for.
 """
 from __future__ import annotations
 
@@ -26,18 +27,20 @@ sys.path[:0] = [str(ROOT / "src"), str(ROOT)]
 from lcsc_bench.lib import spec  # noqa: E402
 
 
-def profile_cell(cell, seed: int, items: int | None, *, device: str) -> dict:
-    """Set ``cell`` (a ``spec.Cell``) up and profile ``items`` of its
-    items (``None``: the traffic's ``profile_seconds`` of them)."""
+def profile_cell(cell, seed: int, items: int | None, *, devices) -> dict:
+    """Set ``cell`` (a ``spec.Cell``) up on ``devices`` and profile
+    ``items`` of its items (``None``: the traffic's ``profile_seconds``
+    of them)."""
     import torch
 
-    from lcsc_bench.lib import spans, trace
+    from lcsc_bench.lib import trace
 
     def sync():
-        if device == "cuda":
-            torch.cuda.synchronize()
+        if torch.device(devices[0]).type == "cuda":
+            for d in devices:
+                torch.cuda.synchronize(d)
 
-    drv = cell.driver.Driver(cell.config, cell.traffic, seed, device)
+    drv = cell.driver.Driver(cell.config, cell.traffic, seed, devices)
     drv.setup()
     sync()
     seconds = float(cell.traffic["profile_seconds"])
@@ -53,7 +56,7 @@ def profile_cell(cell, seed: int, items: int | None, *, device: str) -> dict:
         while more():
             counters.append(drv.item(len(counters))[0])
     summary = trace.summarize(prof["events"], prof["t0_ns"], prof["t1_ns"])
-    out = spans.rollup(prof["events"], prof["t0_ns"], prof["t1_ns"])
+    out = summary["spans"]
     out["summarize"] = {"window_s": summary["window_s"],
                         "busy_s": summary["busy_s"]}
     out["counters"] = counters
@@ -68,10 +71,13 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     cell = spec.cell(args.workload, True)
     import torch
-    if not torch.cuda.is_available():
-        print(f"{args.workload} needs a CUDA device", file=sys.stderr)
+    if not torch.cuda.is_available() or \
+            torch.cuda.device_count() < cell.chips:
+        print(f"{args.workload} needs {cell.chips} CUDA device(s)",
+              file=sys.stderr)
         return 2
-    out = profile_cell(cell, args.seed, args.items, device="cuda")
+    out = profile_cell(cell, args.seed, args.items,
+                       devices=[f"cuda:{i}" for i in range(cell.chips)])
     out["device"] = torch.cuda.get_device_name(0)
     print(json.dumps(out), flush=True)
     return 0

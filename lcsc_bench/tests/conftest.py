@@ -13,11 +13,6 @@ for p in (str(ROOT), str(ROOT / "src")):
     if p not in sys.path:
         sys.path.insert(0, p)
 
-# tiny sizes of each configuration, for runs on the CPU
-TINY = {"lqcd-thermal-solve": {"lattice": [4, 4, 4, 4]},
-        "lqcd-cold-solve": {"lattice": [4, 4, 4, 8]},
-        "hpl-n65536-run": {"n": 256, "nb": 32}}
-
 
 class SteadyPower:
     """The power sampler's place on the CPU: 100 W throughout."""
@@ -29,22 +24,32 @@ class SteadyPower:
         return None
 
     def window(self, t0, t1):
-        return 100.0, 1500.0, 10
+        return 100.0, 1500.0, 10, [{"board": "cpu", "watts": 100.0,
+                                    "sm_clock_mhz": 1500.0, "samples": 10}]
+
+
+def tiny_cell(name, trace=False, **where):
+    """The cell ``name`` at its tiny size (its workload file's ``tiny``);
+    ``where``: ``spec.cell``'s ``bench`` and ``bench_dir``."""
+    from lcsc_bench.lib import spec
+    cell = spec.cell(name, trace, **where)
+    cell.config.update(cell.tiny)
+    return cell
 
 
 @pytest.fixture
 def tiny_run():
-    """``tiny_run(name, driver_class=None, trace=False)``: run a cell at
-    its tiny size on the CPU for half a second, optionally with another
-    driver class in the cell's place, and return the result object."""
-    from lcsc_bench.lib import spec
+    """``tiny_run(name, driver_class=None, trace=False, **where)``: run a
+    cell at its tiny size on the CPU for half a second, on as many CPU
+    places as it asks for cards, optionally with another driver class in
+    the cell's place, and return the result object."""
     from lcsc_bench.run import execute
 
-    def go(name, driver_class=None, trace=False, seed=2 ** 33 + 17):
-        cell = spec.cell(name, trace)
-        cell.config.update(TINY[name])
+    def go(name, driver_class=None, trace=False, seed=2 ** 33 + 17,
+           **where):
+        cell = tiny_cell(name, trace, **where)
         if driver_class is not None:
             cell.driver = type("Drivers", (), {"Driver": driver_class})
-        return execute(cell, seed, 0.5, trace, device="cpu",
+        return execute(cell, seed, 0.5, trace, devices=["cpu"] * cell.chips,
                        power=SteadyPower, t_start=time.perf_counter())
     return go

@@ -4,7 +4,6 @@ program comes out correct.  At the tiny sizes on the CPU; the control's
 readings at the cells' sizes come from ``control.py`` on the card."""
 import pytest
 
-from lcsc_bench.control import use_control
 from lcsc_bench.lib import spec
 
 CELLS = [w["name"] for w in spec.benchmark()["workloads"]]
@@ -14,7 +13,7 @@ def controlled(base):
     class Control(base):
         def __init__(self, *a, **k):
             super().__init__(*a, **k)
-            use_control(self)
+            self.use_control()
     return Control
 
 

@@ -4,27 +4,11 @@ from torch.autograd import DeviceType
 
 from lcsc_bench.lib import counts, spec, trace
 from lcsc_bench.lib.peaks import HBM_BW, PEAK_F32_FLOPS
+from lcsc_bench.tests.events import Ev
 
 READERS = {m["name"]: spec.load_module(
     spec.BENCH_DIR / "metrics" / f"{m['name']}.py", "t_")
     for part in ("end_to_end", "per_layer") for m in spec.benchmark()[part]}
-
-
-class Ev:
-    def __init__(self, name, dev, start, dur):
-        self._n, self._d, self._s, self._u = name, dev, start, dur
-
-    def name(self):
-        return self._n
-
-    def device_type(self):
-        return self._d
-
-    def start_ns(self):
-        return self._s
-
-    def duration_ns(self):
-        return self._u
 
 
 def test_trace_busy_ops_and_gaps():
@@ -121,3 +105,72 @@ def test_kept_answers_are_copies_of_the_window_s(items):
     assert len(set(got)) == len(got) and set(got) <= set(range(items))
     for i, x in got.items():
         assert torch.equal(x, torch.full((5,), float(i)))
+
+
+def test_busy_seconds_per_card():
+    """Two cards: each card's union of its own activities, and the union
+    over both as ``busy_s``; a device user annotation counts on none."""
+    from lcsc_bench.run import busy_per_card
+    from lcsc_bench.tests.events import CUDA
+    events = [Ev("k", CUDA, 100, 100, index=0), Ev("k", CUDA, 150, 100,
+                                                    index=0),
+              Ev("k", CUDA, 200, 300, index=1), Ev("k", CUDA, 900, 50,
+                                                    index=1),
+              Ev("lqcd.solve", CUDA, 0, 1000, index=1, annotation=True)]
+    s = trace.summarize(events, 0, 1000)
+    assert s["busy_s_by_card"] == {0: pytest.approx(150e-9),
+                                   1: pytest.approx(350e-9)}
+    assert s["busy_s"] == pytest.approx(450e-9)       # [100, 500) + [900, 950)
+    assert busy_per_card(s, 4) == [pytest.approx(150e-9),
+                                   pytest.approx(350e-9), 0.0, 0.0]
+    one = trace.summarize(events[:2], 0, 1000)
+    assert busy_per_card(one, 1) == [one["busy_s"]]
+
+
+def test_the_fullest_card_s_peak():
+    from lcsc_bench.run import memory_peaks
+    got = memory_peaks(["cuda:0", "cuda:1", "cuda:2", "cuda:3"],
+                       {"cuda:0": 5, "cuda:1": 9, "cuda:2": 7,
+                        "cuda:3": 1}.get)
+    assert got == {"memory_peak_bytes": 9,
+                   "memory_peak_bytes_per_card": [5, 9, 7, 1]}
+    assert memory_peaks(["cuda:0"], lambda d: 17) == {
+        "memory_peak_bytes": 17, "memory_peak_bytes_per_card": [17]}
+
+
+def test_summarize_keeps_the_rollup_of_the_same_events():
+    from lcsc_bench.lib import spans
+    from lcsc_bench.tests.test_bench_spans import EVENTS
+    assert trace.summarize(EVENTS, -100, 1100)["spans"] == \
+        spans.rollup(EVENTS, -100, 1100)
+
+
+def test_the_span_metrics():
+    """The seven readers of the program's spans on a rollup made by hand:
+    two solves, 800 CG iterations; one HPL run of 256 panels."""
+    def rolled(names=None):
+        return {"trace": {"window_s": 2.0, "spans": {"spans": names or {}}}}
+    lq = rolled({"lqcd.solve": {"count": 2},
+                 "lqcd.host_sync": {"count": 818},
+                 "lqcd.cg.iter": {"count": 800, "launches_total": 27200,
+                                  "idle_total_s": 1.2},
+                 "lqcd.normal_op": {"count": 800, "idle_total_s": 0.8}})
+    assert READERS["solve.host_syncs"].read(lq) == 409.0
+    assert READERS["solve.launches_per_iter"].read(lq) == 34.0
+    assert READERS["device_idle.solve.normal_op"].read(lq) == \
+        pytest.approx(40.0)
+    assert READERS["device_idle.solve.cg_update"].read(lq) == \
+        pytest.approx(20.0)
+    hpl = rolled({"hpl.panel": {"count": 256, "launches_total": 768,
+                                "idle_total_s": 0.0005},
+                  "hpl.solve": {"count": 1, "idle_total_s": 0.025}})
+    assert READERS["hpl.panel_launches"].read(hpl) == 3.0
+    assert READERS["device_idle.hpl.panel"].read(hpl) == pytest.approx(0.025)
+    assert READERS["device_idle.hpl.solve"].read(hpl) == pytest.approx(1.25)
+    # nothing to read: not traced, or no such span in the stretch
+    for name in ("solve.host_syncs", "solve.launches_per_iter",
+                 "device_idle.solve.normal_op", "device_idle.solve.cg_update",
+                 "hpl.panel_launches", "device_idle.hpl.panel",
+                 "device_idle.hpl.solve"):
+        assert READERS[name].read({"trace": None}) is None
+        assert READERS[name].read(rolled()) is None

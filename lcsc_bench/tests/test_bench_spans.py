@@ -1,46 +1,10 @@
 """The rollup by the program's spans (``lib/spans.py``) on event lists
 made by hand, and on the CPU profile of tiny cells (``span_rollup.py``)."""
 import pytest
-from torch.autograd import DeviceType
 
-from lcsc_bench.lib import spans, spec, trace
-
-CUDA, CPU = DeviceType.CUDA, DeviceType.CPU
-
-
-class Ev:
-    def __init__(self, name, dev, start, dur, *, corr=0, annotation=False):
-        self._n, self._d, self._s, self._u = name, dev, start, dur
-        self._c, self._a = corr, annotation
-
-    def name(self):
-        return self._n
-
-    def device_type(self):
-        return self._d
-
-    def start_ns(self):
-        return self._s
-
-    def duration_ns(self):
-        return self._u
-
-    def correlation_id(self):
-        return self._c
-
-    def is_user_annotation(self):
-        return self._a
-
-
-def span(name, start, dur):
-    return Ev(name, CPU, start, dur)
-
-
-def launch(name, start, dur, corr, called_at):
-    """A device activity and the runtime call that launched it."""
-    return [Ev(name, CUDA, start, dur, corr=corr),
-            Ev("cudaLaunchKernel", CPU, called_at, 5, corr=corr)]
-
+from lcsc_bench.lib import spans, trace
+from lcsc_bench.tests.conftest import tiny_cell
+from lcsc_bench.tests.events import CPU, CUDA, Ev, launch, span
 
 # a solve [0, 1000) of two iterations, the first with a normal op and a
 # host sync; a launch under each of normal_op, cg.iter, host_sync and
@@ -117,11 +81,9 @@ def test_the_program_s_names_are_read():
 @pytest.mark.parametrize("name", ["lqcd-thermal-solve", "hpl-n65536-run"])
 def test_a_tiny_cell_s_profile(name):
     from lcsc_bench.span_rollup import profile_cell
-    from lcsc_bench.tests.conftest import TINY
     from repro_torch import spans as program
-    cell = spec.cell(name, True)
-    cell.config.update(TINY[name])
-    r = profile_cell(cell, 2 ** 33 + 17, 2, device="cpu")
+    cell = tiny_cell(name, True)
+    r = profile_cell(cell, 2 ** 33 + 17, 2, devices=["cpu"])
     assert set(r["spans"]) <= set(program.NAMES)
     got = {n: v["count"] for n, v in r["spans"].items()}
     c = r["counters"]
