@@ -3400,8 +3400,8 @@ def main() -> int:
             check(res.converged and res.rel_residual <= 1e-6,
                   f"the {what} solve at {shape} converged to <= 1e-6")
             check(lc["dslash_eo_split"] == k * (4 * res.iters
-                                                + 4 * res.outer_iters + 1)
-                  + 1 and lc["dslash_split"] == 1,
+                                                + 4 * res.outer_iters + 2)
+                  and lc["dslash_split"] == k,
                   f"B1 launched per hop and shard in the {what} solve")
         print(f"[14c] {shape}: max|x_sharded - x_one| / max|x_one| {dx:.2e}")
         check(abs(sh.iters - one.iters) <= 2

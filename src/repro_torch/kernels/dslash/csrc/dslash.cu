@@ -230,17 +230,34 @@ unsigned int blocks_for(int64_t sites) {
   return (unsigned int)((sites + kThreads - 1) / kThreads);
 }
 
+// Makes ``device`` the calling thread's current device for its scope and
+// puts the caller's back at its end, so that a launch on a shard's card
+// leaves the caller where it was.
+struct OnDevice {
+  int caller = -1;
+  cudaError_t err;
+  explicit OnDevice(int device) {
+    err = cudaGetDevice(&caller);
+    if (err != cudaSuccess) caller = -1;
+    else err = cudaSetDevice(device);
+  }
+  ~OnDevice() {
+    if (caller >= 0) cudaSetDevice(caller);
+  }
+};
+
 }  // namespace
 
 extern "C" {
 
 // Each launcher enqueues one kernel on ``stream`` of ``device`` and returns
-// the launch's cudaError_t (0 on success); it does not synchronise.
+// the launch's cudaError_t (0 on success); it does not synchronise, and the
+// calling thread's current device is the same after it as before.
 
 int dslash_full_launch(const void* U, const void* psi, void* out, int X,
                        int Y, int Z, int T, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
+  OnDevice on(device);
+  if (on.err != cudaSuccess) return (int)on.err;
   const int64_t V = (int64_t)X * Y * Z * T;
   if (V == 0) return 0;
   dslash_full_kernel<<<blocks_for(V), kThreads, 0, (cudaStream_t)stream>>>(
@@ -251,8 +268,8 @@ int dslash_full_launch(const void* U, const void* psi, void* out, int X,
 int dslash_eo_launch(const void* U_out, const void* U_src, const void* psi,
                      void* out, int Xh, int Y, int Z, int T, int out_parity,
                      int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
+  OnDevice on(device);
+  if (on.err != cudaSuccess) return (int)on.err;
   const int64_t V = (int64_t)Xh * Y * Z * T;
   if (V == 0) return 0;
   dslash_eo_kernel<<<blocks_for(V), kThreads, 0, (cudaStream_t)stream>>>(

@@ -3,8 +3,9 @@ primary workload (paper C1).
 
 Wilson-Dirac D-slash (the memory-bound hotspot), even-odd preconditioning,
 and a conjugate-gradient solver for the Dirac equation, in PyTorch, on one
-device or T-sharded over a ``repro_torch.distributed.LatticeMesh``
-(``ShardedWilsonEO``, ``solve_dirac(..., mesh=)``; the full-lattice
+device or T-sharded over a ``repro_torch.distributed.LatticeMesh``, from
+whole tensors or from per-shard T-slabs (``ShardedWilsonEO``,
+``solve_dirac(..., mesh=)``, ``solve_wilson_eo_slabs``; the full-lattice
 ``dslash_sharded`` is in ``repro_torch.lqcd.multichip``).  The hand-written
 CUDA D-slash kernels live in ``repro_torch.kernels.dslash``.
 """

@@ -148,14 +148,17 @@ def solve_wilson_eo(U: torch.Tensor, b: torch.Tensor, kappa: float, *,
     the reliable-update scheme the paper's single/double CG uses.
 
     With ``mesh`` (a :class:`repro_torch.distributed.LatticeMesh`), the
-    Schur operators and the whole inner CG run T-sharded over its shards
-    (:class:`repro_torch.lqcd.multichip_eo.ShardedWilsonEO`): the
-    hand-written EO kernel on halo-padded blocks on a CUDA mesh, the plain
-    hop on a CPU mesh.  The odd sites are then reconstructed on the
-    inputs' device from the
-    gathered ``x_e`` (the JAX function hands its still-sharded ``x_e`` to
-    the one-device reconstruction, which fails there).
+    whole solve runs T-sharded over its shards on per-shard slabs
+    (:func:`repro_torch.lqcd.multichip_eo.solve_wilson_eo_slabs`): ``U``
+    and ``b`` are cut into the mesh's slabs at its start and ``x`` is
+    gathered on ``b``'s device at its end.
     """
+    if mesh is not None:
+        from repro_torch.lqcd.multichip_eo import solve_wilson_eo_whole
+        return solve_wilson_eo_whole(U, b, kappa, mesh, tol=tol,
+                                     max_iters=max_iters,
+                                     inner_dtype=inner_dtype,
+                                     inner_tol=inner_tol, max_outer=max_outer)
     with span(LQCD_EO_PREPARE):
         U_e, U_o = pack_gauge(U)
         b_e, b_o = eo_pack(b, 0), eo_pack(b, 1)
@@ -163,46 +166,30 @@ def solve_wilson_eo(U: torch.Tensor, b: torch.Tensor, kappa: float, *,
         # no low-precision pass gets below its own roundoff; full precision
         # drives straight to tol in one outer sweep
         eta = inner_tol if inner_dtype is not None else tol
+        rhs_e = eo_rhs(U_e, U_o, b_e, b_o, kappa)
 
-        if mesh is not None:
-            from repro_torch.lqcd.multichip_eo import ShardedWilsonEO
-            hi = ShardedWilsonEO(U_e, U_o, kappa, mesh)
-            # the inner CG streams the *rounded* gauge field, like the
-            # one-device normal_lo path
-            lo = hi if inner_dtype is None else ShardedWilsonEO(
-                _round_complex(U_e, inner_dtype),
-                _round_complex(U_o, inner_dtype), kappa, mesh)
-            rhs_e = hi.rhs(b_e, b_o)
-            schur, schur_dagger = hi.schur, hi.schur_dagger
+        def schur(v):
+            return schur_matvec(U_e, U_o, v, kappa)
 
-            def run_inner(rhs_n, cap):
-                return lo.cg_normal(rhs_n, tol=eta, max_iters=cap,
-                                    inner_dtype=inner_dtype)
+        def schur_dagger(v):
+            return schur_matvec_dagger(U_e, U_o, v, kappa)
+
+        if inner_dtype is not None:
+            U_e_lo = _round_complex(U_e, inner_dtype)
+            U_o_lo = _round_complex(U_o, inner_dtype)
+
+            def normal_lo(v):
+                v = _round_complex(v, inner_dtype)
+                av = schur_matvec(U_e_lo, U_o_lo, v, kappa)
+                av = _round_complex(av, inner_dtype)
+                out = schur_matvec_dagger(U_e_lo, U_o_lo, av, kappa)
+                return _round_complex(out, inner_dtype)
         else:
-            rhs_e = eo_rhs(U_e, U_o, b_e, b_o, kappa)
+            def normal_lo(v):
+                return schur_dagger(schur(v))
 
-            def schur(v):
-                return schur_matvec(U_e, U_o, v, kappa)
-
-            def schur_dagger(v):
-                return schur_matvec_dagger(U_e, U_o, v, kappa)
-
-            if inner_dtype is not None:
-                U_e_lo = _round_complex(U_e, inner_dtype)
-                U_o_lo = _round_complex(U_o, inner_dtype)
-
-                def normal_lo(v):
-                    v = _round_complex(v, inner_dtype)
-                    av = schur_matvec(U_e_lo, U_o_lo, v, kappa)
-                    av = _round_complex(av, inner_dtype)
-                    out = schur_matvec_dagger(U_e_lo, U_o_lo, av, kappa)
-                    return _round_complex(out, inner_dtype)
-            else:
-                def normal_lo(v):
-                    return schur_dagger(schur(v))
-
-            def run_inner(rhs_n, cap):
-                return cg_solve(normal_lo, rhs_n, tol=eta, max_iters=cap)
+        def run_inner(rhs_n, cap):
+            return cg_solve(normal_lo, rhs_n, tol=eta, max_iters=cap)
 
     x_e = torch.zeros_like(rhs_e)
     r_s = rhs_e                              # Schur-system residual
@@ -234,15 +221,19 @@ def solve_wilson_eo(U: torch.Tensor, b: torch.Tensor, kappa: float, *,
     return EOCGResult(x, total_inner, outer, rel, rel <= tol)
 
 
-def solve_dirac(U: torch.Tensor, b: torch.Tensor, kappa: float, cfg, *,
-                mesh=None):
+def solve_dirac(U, b, kappa: float, cfg, *, mesh=None):
     """Config-driven entry point: dispatch on a
     ``repro_torch.config.SolverConfig``.
 
     Returns a ``CGResult`` for the plain path and an ``EOCGResult`` for the
     even-odd paths (both expose ``.x``, ``.iters``, ``.rel_residual``,
     ``.converged``).  ``mesh`` routes the even-odd paths through the
-    T-sharded solve; the plain path has none and refuses it.
+    T-sharded solve; the plain path has none and refuses it.  With
+    ``mesh``, ``U`` and ``b`` are whole tensors (``x`` comes back whole,
+    on ``b``'s device) or sequences of per-shard T-slabs, ``U[j]`` ``(4,
+    X, Y, Z, T/n, 3, 3)`` and ``b[j]`` ``(X, Y, Z, T/n, 4, 3)`` on
+    ``mesh.devices[j]``: then ``x`` comes back as slabs, and no tensor of
+    the whole lattice is made on any device.
     """
     if cfg.preconditioner == "none":
         if mesh is not None:
@@ -254,6 +245,13 @@ def solve_dirac(U: torch.Tensor, b: torch.Tensor, kappa: float, cfg, *,
     # float32 inner == working precision: not a mixed-precision solve
     inner = _INNER_DTYPES[cfg.inner_dtype] if cfg.mixed_precision else None
     with span(LQCD_SOLVE):
+        if mesh is not None and not isinstance(U, torch.Tensor):
+            from repro_torch.lqcd.multichip_eo import solve_wilson_eo_slabs
+            return solve_wilson_eo_slabs(U, b, kappa, mesh, tol=cfg.tol,
+                                         max_iters=cfg.max_iters,
+                                         inner_dtype=inner,
+                                         inner_tol=cfg.inner_tol,
+                                         max_outer=cfg.max_outer)
         return solve_wilson_eo(U, b, kappa, tol=cfg.tol,
                                max_iters=cfg.max_iters, inner_dtype=inner,
                                inner_tol=cfg.inner_tol,

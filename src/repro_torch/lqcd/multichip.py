@@ -32,6 +32,7 @@ import torch
 from repro_torch.distributed.sharding import (LatticeMesh, gather_t_blocks,
                                               split_t_blocks)
 from repro_torch.kernels.dslash.ops import dslash_op
+from repro_torch.spans import LQCD_HALO, span
 
 T_AX = 3
 
@@ -119,6 +120,26 @@ def _dslash_padded_local(U_loc: torch.Tensor, psi_loc: torch.Tensor,
     return dslash_op(U_pad, psi_pad).narrow(T_AX, 1, Tl)
 
 
+def dslash_slabs(Us: Sequence[torch.Tensor],
+                 psis: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """D-slash of a field held as T-slabs, slab ``j`` on its shard's
+    device: ``Us`` (4, X, Y, Z, T_local, 3, 3), ``psis`` (X, Y, Z,
+    T_local, 4, 3), in the shards' order along T.  The spin-projected
+    halos and the one link slice the -t hop reads cross between
+    neighbours (inside an ``lqcd.halo`` span); each shard runs the full
+    hop on its padded block; the result is one slab a shard."""
+    with span(LQCD_HALO):
+        psi_next, psi_prev = send_halos(psis, projected=True)
+        # zero-fill the dropped spin components on arrival
+        psi_next = [scatter_spin(h, 2) for h in psi_next]
+        psi_prev = [scatter_spin(h, 0) for h in psi_prev]
+        tl = psis[0].shape[T_AX]
+        u_prev_last = ppermute([u[3].narrow(T_AX, tl - 1, 1) for u in Us],
+                               halo_perms(len(Us))[1])
+    return [_dslash_padded_local(*args) for args in
+            zip(Us, psis, psi_next, psi_prev, u_prev_last)]
+
+
 def dslash_sharded(U: torch.Tensor, psi: torch.Tensor, mesh: LatticeMesh,
                    compress: bool = True) -> torch.Tensor:
     """D-slash with the lattice T axis split over ``mesh``'s shards.
@@ -134,17 +155,11 @@ def dslash_sharded(U: torch.Tensor, psi: torch.Tensor, mesh: LatticeMesh,
     """
     Us = split_t_blocks(U, mesh, T_AX + 1)
     psis = split_t_blocks(psi, mesh, T_AX)
-    psi_next, psi_prev = send_halos(psis, projected=compress)
     if compress:
-        # zero-fill the dropped spin components on arrival; only the -t
-        # hop's link slice crosses from the gauge field
-        psi_next = [scatter_spin(h, 2) for h in psi_next]
-        psi_prev = [scatter_spin(h, 0) for h in psi_prev]
-        tl = psis[0].shape[T_AX]
-        u_prev_last = ppermute([u[3].narrow(T_AX, tl - 1, 1) for u in Us],
-                               halo_perms(mesh.n)[1])
+        outs = dslash_slabs(Us, psis)
     else:
+        psi_next, psi_prev = send_halos(psis, projected=False)
         u_prev_last = _halo_exchange([u[3] for u in Us], T_AX)[1]
-    outs = [_dslash_padded_local(*args) for args in
-            zip(Us, psis, psi_next, psi_prev, u_prev_last)]
+        outs = [_dslash_padded_local(*args) for args in
+                zip(Us, psis, psi_next, psi_prev, u_prev_last)]
     return gather_t_blocks(outs, T_AX, psi.device)

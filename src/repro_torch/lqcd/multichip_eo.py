@@ -13,14 +13,22 @@ memory bandwidth, applied to the even-odd solver of
     *spin-projected* components the Wilson projector keeps (``(1 ∓ γ_t)``
     is ``diag(0,0,2,2)`` / ``diag(2,2,0,0)`` in the Dirac basis), half a
     spinor slice each way, and no gauge traffic: the neighbours' link
-    slices are loop-invariant and gathered once per gauge field.
+    slices are loop-invariant and cross once per gauge field.
   * On the card each shard's hop is the hand-written even-odd kernel (B1,
-    ``dslash_eo_kernel``) on a halo-padded block (``_half_hop_padded_local``);
+    ``dslash_eo_kernel``) on a halo-padded block (``_half_hop_padded``);
     on the CPU it is the plain ``_half_hop_local``.
 
-The inner CG (:meth:`ShardedWilsonEO.cg_normal`) runs on per-shard blocks
-from start to end: each reduction is the sum of the shards' partial dot
-products, and the vectors are split once and gathered once.
+:func:`solve_wilson_eo_slabs` is the whole EO_MIXED solve on a field
+held as T-slabs, slab ``j`` on ``mesh.devices[j]``, from entry to return:
+each shard packs its own gauge halves and their rounded copy, and only
+the halos and the gauge's boundary slices cross between shards.  Every
+vector of the solve (right-hand side, CG vectors, defect, answer) stays
+as per-shard blocks; each reduction is the sum of the shards' partial
+dot products (an ``lqcd.reduce`` span), each halo exchange an
+``lqcd.halo`` span, and the solver's spans and host syncs are those of
+the one-device solve.  The whole-tensor ``mesh=`` solve
+(:func:`solve_wilson_eo_whole`) cuts its inputs into slabs, runs it, and
+gathers ``x``.
 
 Differences from the JAX module, by design:
 
@@ -36,6 +44,9 @@ Differences from the JAX module, by design:
     JAX module has two (``overlap``), which compute the same sums.
   * **No ``t_block``**: B1 has no T blocking to tune, so the JAX module's
     ``sharded_t_block`` lookup has no counterpart.
+  * **The odd reconstruction and the true residual run sharded**; the JAX
+    function hands its still-sharded ``x_e`` to the one-device
+    reconstruction, which fails there.
   * :func:`measured_lqcd_calibration`'s ``n_devices`` counts the distinct
     devices the shards sit on, not the shard count.
 
@@ -47,6 +58,7 @@ of the analytic S9150 roofline.
 """
 from __future__ import annotations
 
+import copy
 import time
 from dataclasses import dataclass, field
 from typing import Any, List, Optional, Sequence, Tuple
@@ -63,18 +75,23 @@ from repro_torch.distributed.sharding import (LatticeMesh, gather_t_blocks,
 from repro_torch.kernels.dslash.kernel import dslash_eo_split
 from repro_torch.kernels.dslash.ref import (dslash_eo_split_ref, from_split,
                                             to_split)
-from repro_torch.lqcd.cg import CGResult, _dot, _round_complex
+from repro_torch.lqcd.cg import (CGResult, EOCGResult, _dot, _read,
+                                 _round_complex)
 from repro_torch.lqcd.dirac import (dslash_bytes_per_site,
                                     dslash_flops_per_site, gamma5, mv, mv_dag,
                                     spin)
-from repro_torch.lqcd.eo import (PROJ_M, PROJ_P, _s_out, eo_pack,
+from repro_torch.lqcd.eo import (PROJ_M, PROJ_P, _s_out, eo_pack, eo_unpack,
                                  hops_spatial, pack_gauge, schur_matvec,
                                  schur_matvec_dagger)
-from repro_torch.lqcd.multichip import T_AX, scatter_spin, send_halos
+from repro_torch.lqcd.multichip import (T_AX, dslash_slabs, halo_perms,
+                                        ppermute, scatter_spin, send_halos)
 from repro_torch.lqcd.su3 import random_field_and_source
 from repro_torch.power.model import (H100_SXM, OperatingPoint,
                                      gpu_power_throttled, h100_chip_power)
 from repro_torch.power.trace import TraceRecorder
+from repro_torch.spans import (LQCD_CG_ITER, LQCD_EO_FINISH, LQCD_EO_OUTER,
+                               LQCD_EO_PREPARE, LQCD_HALO, LQCD_NORMAL_OP,
+                               LQCD_REDUCE, span)
 
 __all__ = [
     "LQCDCalibration",
@@ -82,16 +99,52 @@ __all__ = [
     "analytic_lqcd_calibration",
     "dslash_half_sharded",
     "measured_lqcd_calibration",
+    "solve_wilson_eo_slabs",
+    "solve_wilson_eo_whole",
 ]
 
 _G_AX, _P_AX = lattice_eo_specs()
+
+
+def _check_mesh(mesh) -> None:
+    if not isinstance(mesh, LatticeMesh):
+        raise TypeError(f"mesh must be a LatticeMesh "
+                        f"(repro_torch.distributed.lattice_mesh), got "
+                        f"{type(mesh).__name__}")
+
+
+def _check_slabs(name: str, slabs: Sequence[torch.Tensor], mesh: LatticeMesh,
+                 t_axis: int) -> None:
+    """One T-slab a shard, each on its shard's device, all of one T extent."""
+    if len(slabs) != mesh.n:
+        raise ValueError(f"{name} has {len(slabs)} T-slabs for a "
+                         f"{mesh.n}-shard mesh")
+    for j, (s, d) in enumerate(zip(slabs, mesh.devices)):
+        if s.device != d:
+            raise ValueError(f"{name}[{j}] is on {s.device}, its shard on {d}")
+        if s.shape[t_axis] != slabs[0].shape[t_axis]:
+            raise ValueError(f"{name}'s T-slabs differ in T extent")
+
+
+def _parity_at(parity: int, t0: int) -> int:
+    """The local parity, in a T-slab whose first row is global ``t0``, of
+    the sites of global ``parity``."""
+    return (parity + t0) % 2
 
 
 # ---------------------------------------------------------------------------
 # Loop-invariant preparation, once per gauge field
 # ---------------------------------------------------------------------------
 
-def _prev_t_links(U_half: torch.Tensor, mesh: LatticeMesh) -> List:
+def _pack_gauge_slab(U: torch.Tensor, t0: int) -> Tuple[torch.Tensor,
+                                                        torch.Tensor]:
+    """The global even and odd gauge halves of a T-slab whose first row is
+    global ``t0``, packed on the slab's device."""
+    halves = pack_gauge(U)
+    return halves if _parity_at(0, t0) == 0 else halves[::-1]
+
+
+def _prev_t_links(hs: Sequence[torch.Tensor]) -> List:
     """Per shard, the *previous* shard's last +t link slice.
 
     The -t hop at a shard's first T-row needs the source-parity gauge link
@@ -99,25 +152,21 @@ def _prev_t_links(U_half: torch.Tensor, mesh: LatticeMesh) -> List:
     solve, so each shard gets its copy, shape ``(Xh, Y, Z, 1, 3, 3)``,
     once; no link crosses between shards per hop.
     """
-    T = U_half.shape[_G_AX]
-    tl = T // mesh.n
-    return [U_half[3].narrow(T_AX, (j * tl - 1) % T, 1).to(d).contiguous()
-            for j, d in enumerate(mesh.devices)]
+    tl = hs[0].shape[_G_AX]
+    last = [h[3].narrow(T_AX, tl - 1, 1) for h in hs]
+    return [u.contiguous() for u in ppermute(last, halo_perms(len(hs))[1])]
 
 
-def _padded_gauge(U_half: torch.Tensor, mesh: LatticeMesh) -> List:
-    """Per shard, the gauge half on a halo-padded block: its local T
-    extent grows to ``T_local + 2`` with the periodic neighbour slices
-    baked in (shape ``(4, Xh, Y, Z, T_local + 2, 3, 3)``, contiguous)."""
-    T = U_half.shape[_G_AX]
-    tl = T // mesh.n
-    out = []
-    for j, d in enumerate(mesh.devices):
-        s = j * tl
-        idx = torch.tensor([(s - 1) % T, *range(s, s + tl), (s + tl) % T],
-                           device=U_half.device)
-        out.append(U_half.index_select(_G_AX, idx).to(d).contiguous())
-    return out
+def _padded_gauge(hs: Sequence[torch.Tensor]) -> List:
+    """Per shard, its gauge half on a halo-padded block: its local T
+    extent grows to ``T_local + 2`` with the neighbours' boundary slices
+    (which cross once) baked in (shape ``(4, Xh, Y, Z, T_local + 2, 3,
+    3)``, contiguous)."""
+    fwd, bwd = halo_perms(len(hs))
+    tl = hs[0].shape[_G_AX]
+    nxt = ppermute([h.narrow(_G_AX, 0, 1) for h in hs], fwd)
+    prv = ppermute([h.narrow(_G_AX, tl - 1, 1) for h in hs], bwd)
+    return [torch.cat([p, h, q], _G_AX) for h, p, q in zip(hs, prv, nxt)]
 
 
 # ---------------------------------------------------------------------------
@@ -140,7 +189,8 @@ def _half_hop_local(U_out: torch.Tensor, U_src: torch.Tensor,
     # the parity offset pattern s = (y+z+t+parity) % 2 depends on *global*
     # t: shift the local pattern by this shard's T offset (shards with odd
     # T_local alternate patterns, e.g. 8^4 over 8 shards)
-    s_out = _s_out((2 * Xh, Y, Z, Tl), (out_parity + t0) % 2, psi.device)
+    s_out = _s_out((2 * Xh, Y, Z, Tl), _parity_at(out_parity, t0),
+                   psi.device)
     out = hops_spatial(U_out, U_src, psi, s_out)
     psi_f = torch.cat([psi.narrow(T_AX, 1, Tl - 1),
                        scatter_spin(from_next, 2)], T_AX)
@@ -151,30 +201,27 @@ def _half_hop_local(U_out: torch.Tensor, U_src: torch.Tensor,
     return out + spin(PROJ_P[3], mv_dag(u_b, psi_b))
 
 
-def _half_hop_padded_local(U_out_pad: torch.Tensor, U_src_pad: torch.Tensor,
-                           psi: torch.Tensor, from_next: torch.Tensor,
-                           from_prev: torch.Tensor, *,
-                           src_parity_eff: int) -> torch.Tensor:
+def _half_hop_padded(U_out_pad: torch.Tensor, U_src_pad: torch.Tensor,
+                     psi_pad: torch.Tensor, src_parity_eff: int
+                     ) -> torch.Tensor:
     """Per-shard hop through the EO hop on halo-padded fields: B1 on a
     CUDA tensor, its plain version (``dslash_eo_split_ref``) on a CPU one.
 
-    The spinor halos arrive spin-projected (half slices) and are
-    zero-filled into pad rows 0 and ``T_local + 1`` — exact, since the t
-    projectors annihilate the fill (B1's t hop reads only spin components
-    2-3 forward and 0-1 backward).  The hop's periodic wrap in T lands
-    only on the pad rows, which are cropped.  ``src_parity_eff`` absorbs
-    the pad's t-shift of 1: with an even ``T_local`` every shard sees the
-    same parity pattern, and every real row reads the operands of the
-    one-device hop in the same order.  B1 has no T blocking, so there is
-    no ``t_block`` to choose per padded volume.
+    ``psi_pad`` holds the spin-projected halos zero-filled into pad rows 0
+    and ``T_local + 1`` — exact, since the t projectors annihilate the
+    fill (B1's t hop reads only spin components 2-3 forward and 0-1
+    backward).  The hop's periodic wrap in T lands only on the pad rows,
+    which are cropped.  ``src_parity_eff`` absorbs the pad's t-shift of 1:
+    with an even ``T_local`` every shard sees the same parity pattern, and
+    every real row reads the operands of the one-device hop in the same
+    order.  B1 has no T blocking, so there is no ``t_block`` to choose per
+    padded volume.
     """
-    Tl = psi.shape[T_AX]
-    psi_pad = torch.cat([scatter_spin(from_prev, 0), psi,
-                         scatter_spin(from_next, 2)], T_AX)
-    hop = dslash_eo_split_ref if psi.device.type == "cpu" else dslash_eo_split
+    hop = (dslash_eo_split_ref if psi_pad.device.type == "cpu"
+           else dslash_eo_split)
     out_pad = from_split(hop(to_split(U_out_pad), to_split(U_src_pad),
                              to_split(psi_pad), src_parity_eff))
-    return out_pad.narrow(T_AX, 1, Tl)
+    return out_pad.narrow(T_AX, 1, psi_pad.shape[T_AX] - 2)
 
 
 # ---------------------------------------------------------------------------
@@ -184,31 +231,38 @@ def _half_hop_padded_local(U_out_pad: torch.Tensor, U_src_pad: torch.Tensor,
 class ShardedWilsonEO:
     """T-sharded even-odd Wilson operator set, bound to one gauge field.
 
-    Construction splits the gauge halves over the mesh once, with what
-    each hop needs baked in: the previous shard's +t link slices (plain
-    hop) or the halo-padded gauge blocks (kernel hop).  All public methods
-    take and return *global* compact tensors; results lie on the input's
-    device.  ``backend`` is ``None`` (the kernel on a CUDA mesh, the plain
-    hop on a CPU mesh) or ``"kernel"`` (the padded path on either; module
-    docstring).
+    ``U_e``/``U_o`` are the packed gauge halves: global tensors, split
+    over the mesh here, or sequences of per-shard T-blocks, block ``j`` on
+    ``mesh.devices[j]`` (:meth:`from_slabs` packs them from gauge slabs on
+    each shard's device).  Construction bakes in what each hop needs: the
+    previous shard's +t link slices (plain hop) or the halo-padded gauge
+    blocks (kernel hop), the only gauge slices that cross between shards.
+    The public methods take and return *global* compact tensors (results
+    on the input's device); the solve works on per-shard blocks (lists,
+    one tensor a shard).  ``backend`` is ``None`` (the kernel on a CUDA
+    mesh, the plain hop on a CPU mesh) or ``"kernel"`` (the padded path on
+    either; module docstring).
     """
 
-    def __init__(self, U_e: torch.Tensor, U_o: torch.Tensor, kappa: float,
-                 mesh: LatticeMesh, *, backend: Optional[str] = None):
+    def __init__(self, U_e, U_o, kappa: float, mesh: LatticeMesh, *,
+                 backend: Optional[str] = None):
         if backend not in (None, "kernel"):
             raise ValueError(f"unknown backend {backend!r}")
-        if not isinstance(mesh, LatticeMesh):
-            raise TypeError(f"mesh must be a LatticeMesh "
-                            f"(repro_torch.distributed.lattice_mesh), got "
-                            f"{type(mesh).__name__}")
+        _check_mesh(mesh)
         self.mesh = mesh
         self.kappa = float(kappa)
         self.n = mesh.n
-        T = int(U_e.shape[_G_AX])
-        if T % self.n:
-            raise ValueError(f"lattice T extent {T} is not divisible by the "
-                             f"{self.n}-shard mesh")
-        self.t_local = T // self.n
+        if isinstance(U_e, torch.Tensor):
+            T = int(U_e.shape[_G_AX])
+            if T % self.n:
+                raise ValueError(f"lattice T extent {T} is not divisible by "
+                                 f"the {self.n}-shard mesh")
+            U_e = split_t_blocks(U_e, mesh, _G_AX)
+            U_o = split_t_blocks(U_o, mesh, _G_AX)
+        else:
+            _check_slabs("U_e", U_e, mesh, _G_AX)
+            _check_slabs("U_o", U_o, mesh, _G_AX)
+        self.t_local = int(U_e[0].shape[_G_AX])
         if backend is None:
             on_card = mesh.devices[0].type != "cpu"
             backend = "kernel" if on_card else "plain"
@@ -219,30 +273,58 @@ class ShardedWilsonEO:
                     "backend='kernel' needs an even local T extent (the halo "
                     f"pad shifts parity per shard); got T_local="
                     f"{self.t_local}")
-            self._gauge = (_padded_gauge(U_e, mesh), _padded_gauge(U_o, mesh))
+            self._gauge = (_padded_gauge(U_e), _padded_gauge(U_o))
         else:
-            self._gauge = (split_t_blocks(U_e, mesh, _G_AX),
-                           split_t_blocks(U_o, mesh, _G_AX),
-                           _prev_t_links(U_e, mesh), _prev_t_links(U_o, mesh))
+            self._gauge = (list(U_e), list(U_o), _prev_t_links(U_e),
+                           _prev_t_links(U_o))
+
+    @classmethod
+    def from_slabs(cls, U: Sequence[torch.Tensor], kappa: float,
+                   mesh: LatticeMesh, *, backend: Optional[str] = None
+                   ) -> "ShardedWilsonEO":
+        """The operator set of a gauge field held as T-slabs ``(4, X, Y, Z,
+        T_local, 3, 3)``, slab ``j`` on ``mesh.devices[j]``: each shard
+        packs its own halves."""
+        _check_mesh(mesh)
+        _check_slabs("U", U, mesh, _G_AX)
+        tl = int(U[0].shape[_G_AX])
+        halves = [_pack_gauge_slab(u, j * tl) for j, u in enumerate(U)]
+        return cls([h[0] for h in halves], [h[1] for h in halves], kappa,
+                   mesh, backend=backend)
+
+    def rounded(self, dtype) -> "ShardedWilsonEO":
+        """The same operator on its gauge blocks rounded through ``dtype``
+        (``cg._round_complex``), each on its shard's device."""
+        lo = copy.copy(self)
+        lo._gauge = tuple([_round_complex(g, dtype) for g in gs]
+                          for gs in self._gauge)
+        return lo
 
     # -- per-shard blocks ---------------------------------------------------
 
     def _split(self, v: torch.Tensor) -> List[torch.Tensor]:
         return split_t_blocks(v, self.mesh, _P_AX)
 
+    def _gather(self, vs: Sequence[torch.Tensor], like: torch.Tensor):
+        return gather_t_blocks(vs, _P_AX, like.device)
+
     def _hop(self, vs: Sequence[torch.Tensor], src_parity: int) -> List:
         """One sharded EO hop: ``vs`` on ``src_parity`` sites, per shard."""
         if self.backend == "kernel":
             U_e, U_o = self._gauge
             u_out, u_src = (U_o, U_e) if src_parity == 0 else (U_e, U_o)
-            from_next, from_prev = send_halos(vs, projected=True)
-            return [_half_hop_padded_local(
-                u_out[j], u_src[j], vs[j], from_next[j], from_prev[j],
-                src_parity_eff=1 - src_parity) for j in range(self.n)]
+            with span(LQCD_HALO):
+                from_next, from_prev = send_halos(vs, projected=True)
+                pads = [torch.cat([scatter_spin(p, 0), v,
+                                   scatter_spin(q, 2)], T_AX)
+                        for v, q, p in zip(vs, from_next, from_prev)]
+            return [_half_hop_padded(u_out[j], u_src[j], pads[j],
+                                     1 - src_parity) for j in range(self.n)]
         U_e, U_o, up_e, up_o = self._gauge
         u_out, u_src, u_prev = ((U_o, U_e, up_e) if src_parity == 0
                                 else (U_e, U_o, up_o))
-        from_next, from_prev = send_halos(vs, projected=True)
+        with span(LQCD_HALO):
+            from_next, from_prev = send_halos(vs, projected=True)
         return [_half_hop_local(
             u_out[j], u_src[j], u_prev[j], vs[j], from_next[j], from_prev[j],
             out_parity=1 - src_parity, t0=j * self.t_local)
@@ -256,50 +338,81 @@ class ShardedWilsonEO:
     def _schur_dagger(self, vs: Sequence[torch.Tensor]) -> List:
         return [gamma5(w) for w in self._schur([gamma5(v) for v in vs])]
 
+    def _rhs(self, b_e: Sequence[torch.Tensor],
+             b_o: Sequence[torch.Tensor]) -> List:
+        return [e + self.kappa * d for e, d in zip(b_e, self._hop(b_o, 1))]
+
+    def _reconstruct(self, x_e: Sequence[torch.Tensor],
+                     b_o: Sequence[torch.Tensor]) -> List:
+        return [o + self.kappa * d for o, d in zip(b_o, self._hop(x_e, 0))]
+
+    def reduce(self, a: Sequence[torch.Tensor],
+               c: Sequence[torch.Tensor]) -> torch.Tensor:
+        """Re <a, c> of two per-shard fields: the shards' partial dot
+        products summed in shard order on shard 0's device (an
+        ``lqcd.reduce`` span)."""
+        dev0 = self.mesh.devices[0]
+        with span(LQCD_REDUCE):
+            parts = [_dot(ai, ci) for ai, ci in zip(a, c)]
+            total = parts[0]
+            for p in parts[1:]:
+                total = total + p.to(dev0)
+        return total
+
+    def _bcast(self, s: torch.Tensor) -> List[torch.Tensor]:
+        """A 0-dim tensor on shard 0's device, on every shard's device."""
+        return [s.to(d) for d in self.mesh.devices]
+
     # -- public operators (global compact tensors) --------------------------
 
     def dslash_half(self, psi: torch.Tensor, src_parity: int) -> torch.Tensor:
         """Sharded equivalent of :func:`repro_torch.lqcd.eo.dslash_half`
         (with the gauge halves bound at construction)."""
-        return gather_t_blocks(self._hop(self._split(psi), src_parity),
-                               _P_AX, psi.device)
+        return self._gather(self._hop(self._split(psi), src_parity), psi)
 
     def schur(self, psi_e: torch.Tensor) -> torch.Tensor:
-        return gather_t_blocks(self._schur(self._split(psi_e)), _P_AX,
-                               psi_e.device)
+        return self._gather(self._schur(self._split(psi_e)), psi_e)
 
     def schur_dagger(self, psi_e: torch.Tensor) -> torch.Tensor:
-        return gather_t_blocks(self._schur_dagger(self._split(psi_e)),
-                               _P_AX, psi_e.device)
+        return self._gather(self._schur_dagger(self._split(psi_e)), psi_e)
 
     def normal(self, psi_e: torch.Tensor) -> torch.Tensor:
         """A†A in one sharded call (the calibration's unit)."""
-        vs = self._schur_dagger(self._schur(self._split(psi_e)))
-        return gather_t_blocks(vs, _P_AX, psi_e.device)
+        return self._gather(
+            self._schur_dagger(self._schur(self._split(psi_e))), psi_e)
 
     def rhs(self, b_e: torch.Tensor, b_o: torch.Tensor) -> torch.Tensor:
         """Even-system right-hand side b'_e = b_e + κ D_eo b_o."""
-        return b_e + self.kappa * self.dslash_half(b_o, 1)
+        return self._gather(self._rhs(self._split(b_e), self._split(b_o)),
+                            b_e)
 
     def reconstruct(self, x_e: torch.Tensor,
                     b_o: torch.Tensor) -> torch.Tensor:
         """Back-substitute the odd sites: x_o = b_o + κ D_oe x_e."""
-        return b_o + self.kappa * self.dslash_half(x_e, 0)
+        return self._gather(
+            self._reconstruct(self._split(x_e), self._split(b_o)), x_e)
 
     # -- the inner CG on per-shard blocks -----------------------------------
 
     def cg_normal(self, b: torch.Tensor, *, tol: float, max_iters: int,
                   inner_dtype=None) -> CGResult:
-        """CGNE on A†A with every vector kept as per-shard blocks: ``b`` is
-        split once and ``x`` gathered once.  Each reduction is the sum of
-        the shards' partial dot products, in shard order, on shard 0's
-        device.  ``inner_dtype`` rounds fields exactly like the one-device
+        """:meth:`cg_blocks` on a global compact ``b``: split once, ``x``
+        gathered once."""
+        res = self.cg_blocks(self._split(b), tol=tol, max_iters=max_iters,
+                             inner_dtype=inner_dtype)
+        return res._replace(x=self._gather(res.x, b))
+
+    def cg_blocks(self, b: Sequence[torch.Tensor], *, tol: float,
+                  max_iters: int, inner_dtype=None) -> CGResult:
+        """CGNE on A†A with every vector kept as per-shard blocks; ``x``
+        comes back as blocks.  Each reduction is :meth:`reduce`.
+        ``inner_dtype`` rounds fields exactly like the one-device
         ``normal_lo`` of :func:`repro_torch.lqcd.cg.solve_wilson_eo`.  The
-        stopping test is read back every iteration, as
-        :func:`repro_torch.lqcd.cg.cg_solve` does, which keeps the
-        iteration counts equal to the JAX ``while_loop``'s.
+        stopping test is read back every iteration, and the spans are
+        those of :func:`repro_torch.lqcd.cg.cg_solve`, which keeps the
+        iteration counts equal to the one-device solve's and the JAX
+        ``while_loop``'s.
         """
-        dev0 = self.mesh.devices[0]
 
         def normal(vs):
             if inner_dtype is None:
@@ -309,34 +422,33 @@ class ShardedWilsonEO:
             return [_round_complex(w, inner_dtype)
                     for w in self._schur_dagger(av)]
 
-        def pdot(a, c):
-            total = _dot(a[0], c[0])
-            for ai, ci in zip(a[1:], c[1:]):
-                total = total + _dot(ai, ci).to(dev0)
-            return total
-
-        def axpy(alpha, xs, ys):
-            return [x + alpha.to(x.device) * y for x, y in zip(xs, ys)]
-
-        r = self._split(b)
-        b_norm = torch.sqrt(pdot(r, r))
+        r = list(b)
+        rs = self.reduce(r, r)
+        b_norm = torch.sqrt(rs)
         x = [torch.zeros_like(v) for v in r]
         p = r
-        rs = pdot(r, r)
         it = 0
-        while it < max_iters and bool(torch.sqrt(rs) > tol * b_norm):
-            ap = normal(p)
-            alpha = rs / torch.clamp(pdot(p, ap), min=1e-30)
-            x = axpy(alpha, x, p)
-            r = axpy(-alpha, r, ap)
-            rs_new = pdot(r, r)
-            beta = rs_new / torch.clamp(rs, min=1e-30)
-            p = axpy(beta, r, p)
-            rs = rs_new
-            it += 1
-        rel = float(torch.sqrt(rs) / torch.clamp(b_norm, min=1e-30))
-        return CGResult(gather_t_blocks(x, _P_AX, b.device), it, rel,
-                        rel <= tol)
+
+        def more():
+            return it < max_iters and _read(torch.sqrt(rs) > tol * b_norm)
+
+        go = more()
+        while go:
+            with span(LQCD_CG_ITER):
+                with span(LQCD_NORMAL_OP):
+                    ap = normal(p)
+                alpha = self._bcast(
+                    rs / torch.clamp(self.reduce(p, ap), min=1e-30))
+                x = [xi + a * pi for xi, a, pi in zip(x, alpha, p)]
+                r = [ri - a * api for ri, a, api in zip(r, alpha, ap)]
+                rs_new = self.reduce(r, r)
+                beta = self._bcast(rs_new / torch.clamp(rs, min=1e-30))
+                p = [ri + bt * pi for ri, bt, pi in zip(r, beta, p)]
+                rs = rs_new
+                it += 1
+                go = more()
+        rel = _read(torch.sqrt(rs) / torch.clamp(b_norm, min=1e-30))
+        return CGResult(x, it, rel, rel <= tol)
 
 
 def dslash_half_sharded(U_e: torch.Tensor, U_o: torch.Tensor,
@@ -347,6 +459,85 @@ def dslash_half_sharded(U_e: torch.Tensor, U_o: torch.Tensor,
     entry point; for repeated application build a :class:`ShardedWilsonEO`)."""
     ops = ShardedWilsonEO(U_e, U_o, 0.0, mesh, backend=backend)
     return ops.dslash_half(psi, src_parity)
+
+
+# ---------------------------------------------------------------------------
+# The solve on T-slabs
+# ---------------------------------------------------------------------------
+
+def solve_wilson_eo_slabs(U: Sequence[torch.Tensor],
+                          b: Sequence[torch.Tensor], kappa: float,
+                          mesh: LatticeMesh, *, tol: float = 1e-6,
+                          max_iters: int = 1000, inner_dtype=None,
+                          inner_tol: float = 1e-2, max_outer: int = 30,
+                          backend: Optional[str] = None) -> EOCGResult:
+    """:func:`repro_torch.lqcd.cg.solve_wilson_eo` on a field held as
+    T-slabs, from entry to return.
+
+    ``U`` holds one gauge slab ``(4, X, Y, Z, T/n, 3, 3)`` and ``b`` one
+    source slab ``(X, Y, Z, T/n, 4, 3)`` a shard, slab ``j`` on
+    ``mesh.devices[j]``; the result's ``x`` is the answer's slabs, on the
+    same devices.  The algorithm, its rounding, its stopping tests, spans
+    and host syncs are the one-device solve's; no tensor of the whole
+    lattice is made on any device.  ``backend`` is
+    :class:`ShardedWilsonEO`'s.
+    """
+    _check_mesh(mesh)
+    _check_slabs("b", b, mesh, T_AX)
+    t0s = [j * int(b[0].shape[T_AX]) for j in range(mesh.n)]
+    with span(LQCD_EO_PREPARE):
+        hi = ShardedWilsonEO.from_slabs(U, kappa, mesh, backend=backend)
+        lo = hi if inner_dtype is None else hi.rounded(inner_dtype)
+        b_e = [eo_pack(v, _parity_at(0, t0)) for v, t0 in zip(b, t0s)]
+        b_o = [eo_pack(v, _parity_at(1, t0)) for v, t0 in zip(b, t0s)]
+        b_norm = _read(torch.sqrt(hi.reduce(b, b)))
+        # no low-precision pass gets below its own roundoff; full precision
+        # drives straight to tol in one outer sweep
+        eta = inner_tol if inner_dtype is not None else tol
+        rhs_e = hi._rhs(b_e, b_o)
+
+    x_e = [torch.zeros_like(v) for v in rhs_e]
+    r_s = rhs_e                              # Schur-system residual
+    total_inner = 0
+    outer = 0
+    while outer < max_outer and total_inner < max_iters:
+        rel = _read(torch.sqrt(hi.reduce(r_s, r_s))) / max(b_norm, 1e-30)
+        if rel <= tol:
+            break
+        with span(LQCD_EO_OUTER):
+            # inner CG on the defect equation A†A e = A† r_s, reduced
+            # precision, each low-precision restart capped as on one device
+            remaining = max_iters - total_inner
+            round_cap = (remaining if inner_dtype is None
+                         else min(remaining, max(10, max_iters // 5)))
+            inner = lo.cg_blocks(hi._schur_dagger(r_s), tol=eta,
+                                 max_iters=round_cap, inner_dtype=inner_dtype)
+            total_inner += inner.iters
+            x_e = [x + e for x, e in zip(x_e, inner.x)]
+            r_s = [r - a for r, a in zip(rhs_e, hi._schur(x_e))]
+            outer += 1
+
+    with span(LQCD_EO_FINISH):
+        x_o = hi._reconstruct(x_e, b_o)
+        x = [eo_unpack(e, o) if _parity_at(0, t0) == 0 else eo_unpack(o, e)
+             for e, o, t0 in zip(x_e, x_o, t0s)]
+        d = dslash_slabs(U, x)
+        true_r = [bj - (xj - kappa * dj) for bj, xj, dj in zip(b, x, d)]
+        rel = _read(torch.sqrt(hi.reduce(true_r, true_r))) / max(b_norm,
+                                                                 1e-30)
+    return EOCGResult(x, total_inner, outer, rel, rel <= tol)
+
+
+def solve_wilson_eo_whole(U: torch.Tensor, b: torch.Tensor, kappa: float,
+                          mesh: LatticeMesh, **kw) -> EOCGResult:
+    """:func:`solve_wilson_eo_slabs` on whole tensors: ``U`` and ``b`` cut
+    into the mesh's T-slabs at its start, ``x`` gathered on ``b``'s device
+    at its end (the whole-tensor ``mesh=`` solve)."""
+    _check_mesh(mesh)
+    res = solve_wilson_eo_slabs(split_t_blocks(U, mesh, T_AX + 1),
+                                split_t_blocks(b, mesh, T_AX), kappa, mesh,
+                                **kw)
+    return res._replace(x=gather_t_blocks(res.x, T_AX, b.device))
 
 
 # ---------------------------------------------------------------------------

@@ -36,6 +36,9 @@ LQCD_CG_ITER = "lqcd.cg.iter"            # one per cg_solve iteration
 LQCD_NORMAL_OP = "lqcd.normal_op"        # the matvec inside an iteration
 LQCD_HOST_SYNC = "lqcd.host_sync"        # each read-back to the host
 LQCD_EO_FINISH = "lqcd.eo.finish"        # odd reconstruction, true residual
+# LQCD on T-slabs over several devices (lqcd/multichip_eo.py, multichip.py)
+LQCD_HALO = "lqcd.halo"                  # a sharded hop's halo exchange
+LQCD_REDUCE = "lqcd.reduce"              # the shards' partial dots summed
 # HPL (hpl/lu.py)
 HPL_LU = "hpl.lu"                        # blocked_lu
 HPL_PANEL = "hpl.panel"                  # each panel and its swaps
@@ -49,7 +52,8 @@ HPL_SOLVE_TRSV = "hpl.solve.trsv"        # the two triangular solves
 HPL_HOST_SYNC = "hpl.host_sync"          # the pivots read back
 
 NAMES = (LQCD_SOLVE, LQCD_EO_PREPARE, LQCD_EO_OUTER, LQCD_CG_ITER,
-         LQCD_NORMAL_OP, LQCD_HOST_SYNC, LQCD_EO_FINISH,
+         LQCD_NORMAL_OP, LQCD_HOST_SYNC, LQCD_EO_FINISH, LQCD_HALO,
+         LQCD_REDUCE,
          HPL_LU, HPL_PANEL, HPL_TRSM, HPL_UPDATE, HPL_UPDATE_NEXT,
          HPL_UPDATE_REST, HPL_SOLVE, HPL_SOLVE_PERM, HPL_SOLVE_TRSV,
          HPL_HOST_SYNC)

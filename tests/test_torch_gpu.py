@@ -27,7 +27,8 @@ from repro_torch.kernels.ssd_chunk import kernel as SSK  # noqa: E402
 from repro_torch.kernels.ssd_chunk import ops as ssops  # noqa: E402
 from repro_torch.kernels.ssd_chunk import ref as ssref  # noqa: E402
 from repro_torch.kernels.dslash import ops, ref  # noqa: E402
-from repro_torch.distributed import lattice_mesh  # noqa: E402
+from repro_torch.distributed import (gather_t_blocks, lattice_mesh,  # noqa: E402
+                                     split_t_blocks)
 from repro_torch.lqcd import cg as TC  # noqa: E402
 from repro_torch.lqcd import dirac as TD  # noqa: E402
 from repro_torch.lqcd import eo as TE  # noqa: E402
@@ -126,7 +127,7 @@ def test_sharded_eo_hop_equals_the_one_device_kernel(cuda, lattice, n):
     bit, one B1 launch per shard."""
     U, psi = _fields(lattice, cuda)
     U_e, U_o = TE.pack_gauge(U)
-    mesh = lattice_mesh(lattice[3], n)
+    mesh = lattice_mesh(lattice[3], n, devices=("cuda:0",))
     assert mesh.n == n and mesh.distinct_devices == (torch.device("cuda", 0),)
     ops_ = TMC.ShardedWilsonEO(U_e, U_o, 0.1, mesh)
     assert ops_.backend == "kernel"
@@ -179,8 +180,8 @@ def test_sharded_solve_on_the_card_matches_one_device(cuda, n):
     assert abs(got.iters - want.iters) <= 2
     assert abs(got.outer_iters - want.outer_iters) <= 1
     # per outer step one Schur dagger and one Schur op (4 sharded hops),
-    # 4 per inner normal op; the rhs; one one-device hop to reconstruct
-    assert launches == n * (4 * got.iters + 4 * got.outer_iters + 1) + 1
+    # 4 per inner normal op; the rhs and the odd reconstruction, sharded
+    assert launches == n * (4 * got.iters + 4 * got.outer_iters + 2)
     scale = float(want.x.abs().max())
     assert float((got.x - want.x).abs().max()) <= 1e-3 * scale
 
@@ -200,6 +201,33 @@ def test_shards_on_several_cards(cuda):
     assert torch.equal(got, TE.dslash_half(U_o, U_e, p, 0))
     res = TC.solve_dirac(U, b, 0.137, TL.EO_MIXED_SOLVER, mesh=mesh)
     assert res.converged and res.rel_residual <= 1e-6
+    # the same field as T-slabs on their cards: the slab entry point's x
+    # is the whole-tensor solve's, cut into the same slabs, bit for bit
+    slabs = [split_t_blocks(v, mesh, ax) for v, ax in ((U, 4), (b, 3))]
+    got = TC.solve_dirac(*slabs, 0.137, TL.EO_MIXED_SOLVER, mesh=mesh)
+    assert (got.iters, got.outer_iters) == (res.iters, res.outer_iters)
+    assert [x.device for x in got.x] == list(mesh.devices)
+    assert torch.equal(gather_t_blocks(got.x, 3, b.device), res.x)
+
+
+def test_a_sharded_hop_leaves_the_current_device(cuda):
+    """B1's and B2's launchers put the caller's current device back: hops
+    over cards 0-3 leave ``torch.cuda.current_device()`` as it was."""
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four CUDA devices")
+    U, b = _fields((8, 8, 8, 16), cuda, seed=3)
+    mesh = lattice_mesh(16, 4)
+    assert len(mesh.distinct_devices) == 4
+    U_e, U_o = TE.pack_gauge(U)
+    p = TE.eo_pack(b, 0)
+    try:
+        for current in (0, 2):
+            torch.cuda.set_device(current)
+            TMC.ShardedWilsonEO(U_e, U_o, 0.1, mesh).dslash_half(p, 0)
+            TM.dslash_sharded(U, b, mesh)
+            assert torch.cuda.current_device() == current
+    finally:
+        torch.cuda.set_device(0)
 
 
 def test_random_su3_field_on_the_card(cuda):
