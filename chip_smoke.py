@@ -10,14 +10,18 @@ Phases (one line each, or a few):
      in any instantiation of the GEMM kernel or of the RMSNorm kernels;
   3. each kernel against its plain PyTorch version on the card, at the
      thermal lattice 32^3 x 8 (both even-odd source parities, and the full
-     hop), rtol = atol = 1e-4;
+     hop), rtol = atol = 1e-4; the fused Schur operator
+     (``schur_eo_split``, inner None and bf16, dagger or not) against the
+     plain hops and torch passes it replaced, bit for bit;
   4. the main path: ``solve_dirac(U, b, 0.137, EO_MIXED_SOLVER)`` at 32^3 x 8
      on seeded right-hand sides, with the kernels' launch counts read
      around it; then a small lattice solved on the CPU (plain versions) and
      on the card (kernels), which must agree;
   5. ``solve_dirac(..., PLAIN_SOLVER)`` at 32^3 x 8;
   6. each kernel's time (CUDA events) beside its bound and its plain
-     version's time;
+     version's time; B1's hop variants (load transform, epilogue) and
+     the fused A^dagger A at 32^3 x 8 and 32^3 x 64 beside their bytes
+     bounds and the unfused chain;
   7. the GEMM kernel (both entry points) against its plain version on the
      card: the JAX sweep's shapes in f32 and bf16 at its tolerances, a
      ragged shape, unaligned strided views, and HPL's step-0 trailing
@@ -234,7 +238,8 @@ N_RHS = 2
 TOL = 1e-4                      # rtol = atol: tests/test_kernels.py sweep
 SOURCE = "src/repro_torch/kernels/dslash/csrc/dslash.cu"
 REPLACES = {"dslash_eo_split": "src/repro/kernels/dslash/kernel.py:180",
-            "dslash_split": "src/repro/kernels/dslash/kernel.py:217"}
+            "dslash_split": "src/repro/kernels/dslash/kernel.py:217",
+            "dslash_eo_fused": "src/repro/lqcd/eo.py:166"}
 GEMM_SOURCE = "src/repro_torch/kernels/dgemm/csrc/dgemm.cu"
 GEMM_REPLACES = "src/repro/kernels/dgemm/kernel.py:30"
 PANEL_SOURCE = "src/repro_torch/kernels/panel/csrc/panel.cu"
@@ -349,6 +354,15 @@ EXAMPLES = ("torch_quickstart", "torch_lqcd_cg",
             "torch_efficient_serving")
 WATT_QUERY = ["nvidia-smi", "--query-gpu=power.draw,clocks.sm",
               "--format=csv,noheader,nounits", "-lms", "100"]
+
+
+def own_launches(counts: dict, name: str) -> int:
+    """A kernel record's launches in ``counts``: B1's plain record
+    ("dslash_eo_split") takes the hops that the fused Schur operator
+    ("dslash_eo_fused", a record of its own) did not make."""
+    n = counts.get(name, 0)
+    return n - counts.get("dslash_eo_fused", 0) if name == "dslash_eo_split" \
+        else n
 
 
 def check(ok: bool, what: str) -> None:
@@ -1421,7 +1435,7 @@ def phase18(dev, card: str, records: list) -> float:
         "plain_backward_ms": bwd_ms, "bound_us": b_ms * 1e3,
         "bound_by": b_by, "max_abs_err": ssd_err, "launches": n5}
     for r in records:
-        r["launches_by_train_path"] = {k: v.get(r["name"], 0)
+        r["launches_by_train_path"] = {k: own_launches(v, r["name"])
                                        for k, v in path.items()}
     t18 = time.perf_counter() - t18
     print(f"[18] phase 18 took {t18:.1f} s ({card})")
@@ -1799,7 +1813,7 @@ def phase19(dev, card: str, records: list) -> float:
     finally:
         shutil.rmtree(ckroot, ignore_errors=True)
     for r in records:
-        r["launches_by_driver_path"] = {k: v.get(r["name"], 0)
+        r["launches_by_driver_path"] = {k: own_launches(v, r["name"])
                                         for k, v in path.items()}
     t19 = time.perf_counter() - t19
     print(f"[19] phase 19 took {t19:.1f} s ({card})")
@@ -2195,7 +2209,7 @@ def phase20(dev, card: str, records: list) -> float:
               f"{g['gnorm']:.6f} / {c['gnorm']:.6f}; {g['traffic']} "
               f"collective bytes on both ({card})")
     for r in records:
-        r["launches_by_sharded_path"] = {k: v.get(r["name"], 0)
+        r["launches_by_sharded_path"] = {k: own_launches(v, r["name"])
                                          for k, v in path.items()}
     t20 = time.perf_counter() - t20
     print(f"[20] phase 20 took {t20:.1f} s ({card})")
@@ -2356,7 +2370,7 @@ def phase21(dev, card: str, records: list) -> float:
         del step, args
         torch.cuda.empty_cache()
     for r in records:
-        r["launches_by_dryrun_check"] = {k: v.get(r["name"], 0)
+        r["launches_by_dryrun_check"] = {k: own_launches(v, r["name"])
                                          for k, v in checked.items()}
     t21 = time.perf_counter() - t21
     print(f"[21] phase 21 took {t21:.1f} s ({card})")
@@ -2395,7 +2409,8 @@ def main() -> int:
     from repro_torch.kernels.dslash import kernel as K
     from repro_torch.kernels.panel import kernel as PK
     from repro_torch.kernels.dslash.ref import (dslash_eo_split_ref,
-                                                dslash_split_ref, to_split)
+                                                dslash_split_ref, from_split,
+                                                to_split)
     from repro_torch.kernels.rmsnorm import bench as RB
     from repro_torch.kernels.rmsnorm import kernel as RK
     from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
@@ -2407,7 +2422,8 @@ def main() -> int:
                                   dslash_flops_per_site, dslash_half, eo_pack,
                                   measured_lqcd_calibration, pack_gauge,
                                   schur_matvec, solve_dirac, su3_project)
-    from repro_torch.lqcd.eo import schur_matvec_dagger
+    from repro_torch.lqcd.eo import (_round_complex, schur_composed,
+                                     schur_matvec_dagger)
     from repro_torch.lqcd.multichip import dslash_sharded
     from repro_torch.lqcd.su3 import random_field_and_source
     from repro_torch.power import model as PM
@@ -2509,6 +2525,26 @@ def main() -> int:
     print(f"[3] kernels vs plain at {lat}, rtol=atol={TOL}: dslash_split "
           f"max|err| {err['dslash_split']:.3e}; dslash_eo_split max|err| "
           f"{eo_err[0]:.3e} (even src), {eo_err[1]:.3e} (odd src)")
+    # the fused Schur operator (B1 with a load transform and an epilogue)
+    # against the plain hops and torch passes it replaced, bit for bit
+    psi_e = eo_pack(psi, 0)
+    fused_err = []
+    for inner in (None, torch.bfloat16):
+        U_e_lo, U_o_lo = (_round_complex(h, inner) for h in (U_e, U_o))
+        for dagger in (False, True):
+            got = from_split(K.schur_eo_split(
+                to_split(U_e_lo), to_split(U_o_lo), to_split(psi_e), KAPPA,
+                dagger=dagger, inner_dtype=inner))
+            want = schur_composed(U_e_lo, U_o_lo, psi_e, KAPPA,
+                                  dagger=dagger, inner_dtype=inner)
+            check(torch.equal(got, want), f"the fused Schur operator "
+                  f"(dagger {dagger}, inner {inner}) equals the plain "
+                  f"hops' composition bit for bit")
+            fused_err.append(float((got - want).abs().max()))
+    err["dslash_eo_fused"] = max(fused_err)
+    print(f"[3] fused Schur operator (schur_eo_split) vs the plain hops' "
+          f"composition at {lat}, inner None and bf16, dagger or not: "
+          f"bit-equal")
 
     # 4. the main path: even-odd mixed-precision solve
     rhs = [spinor(lat, dev) for _ in range(N_RHS)]
@@ -2533,9 +2569,12 @@ def main() -> int:
               and bool(torch.isfinite(torch.view_as_real(res.x)).all()),
               f"rhs {k} solution finite, of shape {lat + (4, 3)}")
         inner_total += res.iters
+    outer_total = sum(res.outer_iters for res, _ in results)
     print(f"[4] launches on the main path: {launches}")
     check(launches["dslash_eo_split"] >= 4 * inner_total,
           "dslash_eo_split launched >= 4 x inner iterations")
+    check(launches["dslash_eo_fused"] == 4 * (inner_total + outer_total),
+          "the fused Schur operator launched 4 x (inner + outer) hops")
     check(launches["dslash_split"] >= 1, "dslash_split launched")
     # the residual again, through the plain full hop instead of the kernel
     for k, ((res, _), b) in enumerate(zip(results, rhs)):
@@ -2598,10 +2637,84 @@ def main() -> int:
               f"(no PyTorch call computes D-slash)")
         records.append({"name": name, "route": "cuda", "source": SOURCE,
                         "replaces": REPLACES[name],
-                        "launches": launches[name],
+                        "launches": own_launches(launches, name),
                         "max_abs_err": err[name], "ms": ms,
                         "plain_ms": plain_ms, "bound_ms": b_ms,
                         "bound_by": b_by, "library_ms": None})
+
+    # 6b. the fused Schur operator's hops and its A^+A beside the bytes
+    # bound (768 B an output half-site for a plain or load-transform hop,
+    # 864 B for an epilogue hop, which reads psi too) and beside the
+    # unfused chain it replaced (plain hops, torch's rounding, gamma5 and
+    # axpy passes), on a bf16-rounded gauge field, at the thermal and the
+    # cold lattice (there a hop's operands exceed the L2 cache)
+    fused = {}
+    for where, shape in (("32^3x8", lat), ("32^3x64", COLD_LATTICE.shape)):
+        U_f, b_f = random_field_and_source(shape, SEED, dev)
+        U_fe, U_fo = (_round_complex(h, torch.bfloat16)
+                      for h in pack_gauge(U_f))
+        v = eo_pack(b_f, 0)
+        Ue_s, Uo_s, v_s = to_split(U_fe), to_split(U_fo), to_split(v)
+        shape_h, dev_h = tuple(v.shape[:4]), v.device   # with its index
+        d_s = K.dslash_eo_split(Uo_s, Ue_s, v_s, 0)  # an epilogue's source
+        out_s = torch.empty_like(v_s)
+        del U_f, b_f
+
+        def hop(epi=False, **kw):
+            if epi:     # odd -> even, psi read at the output site
+                return lambda: K._eo_launch(
+                    Ue_s, Uo_s, d_s, out_s, shape_h, 0, dev_h, psi_epi=v_s,
+                    k2=KAPPA * KAPPA, epi=True, **kw)
+            return lambda: K._eo_launch(Uo_s, Ue_s, v_s, out_s, shape_h, 1,
+                                        dev_h, **kw)
+
+        def normal_fused():
+            av = K.schur_eo_split(Ue_s, Uo_s, v_s, KAPPA,
+                                  inner_dtype=torch.bfloat16)
+            K.schur_eo_split(Ue_s, Uo_s, av, KAPPA, dagger=True,
+                             inner_dtype=torch.bfloat16)
+
+        def normal_unfused():
+            av = schur_composed(U_fe, U_fo, v, KAPPA,
+                                inner_dtype=torch.bfloat16)
+            schur_composed(U_fe, U_fo, av, KAPPA, dagger=True,
+                           inner_dtype=torch.bfloat16)
+
+        half_sites = v.numel() // 12
+        hop_b, epi_b = (half_sites * n / hw.HBM_BW * 1e3
+                        for n in (768, 864))
+        rows = {"hop, plain": (hop(), hop_b),
+                "hop, bf16 rounding on load": (hop(rnd=1), hop_b),
+                "hop, gamma5 on load": (hop(g5=True), hop_b),
+                "hop, epilogue, bf16": (hop(rnd=1, epi=True), epi_b),
+                "hop, epilogue, gamma5 + bf16":
+                    (hop(rnd=1, g5=True, epi=True), epi_b),
+                "A^+A, fused (4 launches)":
+                    (normal_fused, 2 * (hop_b + epi_b)),
+                "A^+A, unfused chain (16 launches)":
+                    (normal_unfused, 2 * (hop_b + epi_b))}
+        fused[where] = {}
+        for what, (fn, b_ms) in rows.items():
+            ms = timed_ms(fn, reps=50 if what.startswith("hop") else 20,
+                          warmup=5)
+            fused[where][what] = {"ms": ms, "bound_ms": b_ms}
+            print(f"[6] {where} {what}: {ms * 1e3:.1f} us, "
+                  f"{100 * b_ms / ms:.1f}% of the {b_ms * 1e3:.1f} us bytes "
+                  f"bound")
+        del U_fe, U_fo, v, Ue_s, Uo_s, v_s, d_s, out_s
+    torch.cuda.empty_cache()
+    thermal = fused["32^3x8"]
+    records.append({
+        "name": "dslash_eo_fused", "route": "cuda", "source": SOURCE,
+        "replaces": REPLACES["dslash_eo_fused"],
+        "launches": launches["dslash_eo_fused"],
+        "max_abs_err": err["dslash_eo_fused"],
+        "ms": thermal["A^+A, fused (4 launches)"]["ms"],
+        "plain_ms": thermal["A^+A, unfused chain (16 launches)"]["ms"],
+        "bound_ms": thermal["A^+A, fused (4 launches)"]["bound_ms"],
+        "bound_by": "bytes", "library_ms": None,
+        "what": "one A^+A of the inner CG (bf16); plain_ms is the unfused "
+                "chain it replaced", "by_lattice": fused})
 
     # 7. the GEMM kernel against its plain version on the card
     gen = torch.Generator(dev).manual_seed(SEED)
@@ -3243,10 +3356,10 @@ def main() -> int:
           f"{cal.gflops / w_mem:.4f} GFLOP/s/W; launches {dict(K.LAUNCHES)}."
           f"  The watts window's A^dagger A loop ran at {mem_rate:.1f} "
           f"GFLOP/s, {mem_rate / w_mem:.4f} GFLOP/s/W")
-    check(K.LAUNCHES["dslash_eo_split"] == 4 * (reps + 1)
-          and K.LAUNCHES["dslash_split"] == 0,
-          "the calibration launched 4 EO hops per A^dagger A, warm-up "
-          "included")
+    check(K.LAUNCHES["dslash_eo_split"] == K.LAUNCHES["dslash_eo_fused"]
+          == 4 * (reps + 1) and K.LAUNCHES["dslash_split"] == 0,
+          "the calibration launched 4 fused EO hops per A^dagger A, "
+          "warm-up included")
     check(cal.source == "measured" and cal.gflops > 0
           and abs(cal.energy_j - cal.busy_w * cal.wall_s)
           <= 1e-9 * cal.energy_j, "calibration joules = busy W x wall")
@@ -3269,6 +3382,7 @@ def main() -> int:
     it, outer = lq.details["iters"], lq.details["outer_iters"]
     n_gemm = (steps - 1) + (steps - 2 if hpl_cfg.lookahead else 0)
     want = {"dslash_eo_split": 4 * it + 4 * outer + 2, "dslash_split": 1,
+            "dslash_eo_fused": 4 * it + 4 * outer,
             "dgemm": n_gemm, "dgemm_128x128": n_gemm, "dgemm_64x128": 0}
     for r in res.results:
         t_end = float(r.power_trace.t[-1])
@@ -3808,9 +3922,9 @@ def main() -> int:
             check(r.details["converged"]
                   and r.details["rel_residual"] <= 1e-6,
                   f"uid {uid}: the LQCD solve converges")
-            want16["dslash_eo_split"] += (4 * r.details["iters"]
-                                          + 4 * r.details["outer_iters"]
-                                          + 2)
+            hops = 4 * r.details["iters"] + 4 * r.details["outer_iters"]
+            want16["dslash_eo_split"] += hops + 2
+            want16["dslash_eo_fused"] += hops
             want16["dslash_split"] += 1
     print(f"[16a] launches {sim_launches} (want {want16})")
     check(sim_launches == want16, "B1-B3 and the panel kernels launched "
@@ -3916,9 +4030,9 @@ def main() -> int:
           "the CPU's, and phase 11's")
     for rec in records:
         rec["online"] = {"launches_simulate_execute":
-                         sim_launches[rec["name"]],
+                         own_launches(sim_launches, rec["name"]),
                          "launches_replay_executed":
-                         replay_launches[rec["name"]]}
+                         own_launches(replay_launches, rec["name"])}
     del p_gpu
     t16 = time.perf_counter() - t16
     print(f"[16] phase 16 took {t16:.1f} s ({card})")

@@ -9,7 +9,8 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.dslash.kernel import dslash_eo_split, dslash_split
+from repro_torch.kernels.dslash.kernel import (dslash_eo_split, dslash_split,
+                                               schur_eo_split)
 from repro_torch.kernels.dslash.ref import (dslash_eo_split_ref,
                                             dslash_split_ref, from_split,
                                             to_split)
@@ -38,3 +39,14 @@ def dslash_half_op(U_e: torch.Tensor, U_o: torch.Tensor, psi: torch.Tensor,
     fn = dslash_eo_split_ref if _on_cpu(U_e, U_o, psi) else dslash_eo_split
     return from_split(fn(to_split(U_out), to_split(U_src), to_split(psi),
                          src_parity))
+
+
+def schur_op(U_e: torch.Tensor, U_o: torch.Tensor, psi: torch.Tensor,
+             kappa: float, *, dagger: bool = False,
+             inner_dtype=None) -> torch.Tensor:
+    """The fused even-odd Schur operator on complex compact even
+    half-fields on the card (``kernel.schur_eo_split``: two B1 launches).
+    CUDA tensors only; on the CPU ``repro_torch.lqcd.eo`` composes it."""
+    return from_split(schur_eo_split(to_split(U_e), to_split(U_o),
+                                     to_split(psi), kappa, dagger=dagger,
+                                     inner_dtype=inner_dtype))

@@ -26,8 +26,8 @@ from typing import Callable, NamedTuple
 import torch
 
 from repro_torch.lqcd.dirac import wilson_matvec, wilson_matvec_dagger
-from repro_torch.lqcd.eo import (eo_pack, eo_rhs, eo_unpack, pack_gauge,
-                                 reconstruct_odd, schur_matvec,
+from repro_torch.lqcd.eo import (_round_complex, eo_pack, eo_rhs, eo_unpack,
+                                 pack_gauge, reconstruct_odd, schur_matvec,
                                  schur_matvec_dagger)
 from repro_torch.spans import (LQCD_CG_ITER, LQCD_EO_FINISH, LQCD_EO_OUTER,
                                LQCD_EO_PREPARE, LQCD_HOST_SYNC, LQCD_NORMAL_OP,
@@ -119,20 +119,6 @@ class EOCGResult(NamedTuple):
     converged: bool
 
 
-def _round_complex(v: torch.Tensor, dtype) -> torch.Tensor:
-    """Round a complex field through a reduced-precision real dtype.
-
-    torch has no complex bfloat16, so reduced precision is emulated by
-    rounding the re/im planes through ``dtype`` (round to nearest even) —
-    the storage/traffic model of CL2QCD's low-precision inner solver —
-    while arithmetic stays f32."""
-    if dtype is None:
-        return v
-    if dtype.is_complex:
-        return v.to(dtype)
-    return torch.view_as_complex(torch.view_as_real(v).to(dtype).float())
-
-
 def solve_wilson_eo(U: torch.Tensor, b: torch.Tensor, kappa: float, *,
                     tol: float = 1e-6, max_iters: int = 1000,
                     inner_dtype=None, inner_tol: float = 1e-2,
@@ -179,11 +165,10 @@ def solve_wilson_eo(U: torch.Tensor, b: torch.Tensor, kappa: float, *,
             U_o_lo = _round_complex(U_o, inner_dtype)
 
             def normal_lo(v):
-                v = _round_complex(v, inner_dtype)
-                av = schur_matvec(U_e_lo, U_o_lo, v, kappa)
-                av = _round_complex(av, inner_dtype)
-                out = schur_matvec_dagger(U_e_lo, U_o_lo, av, kappa)
-                return _round_complex(out, inner_dtype)
+                # R(A R(v)), then R(A^+ av): four B1 launches on the card
+                av = schur_matvec(U_e_lo, U_o_lo, v, kappa, inner_dtype)
+                return schur_matvec_dagger(U_e_lo, U_o_lo, av, kappa,
+                                           inner_dtype)
         else:
             def normal_lo(v):
                 return schur_dagger(schur(v))

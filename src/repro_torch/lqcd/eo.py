@@ -26,7 +26,10 @@ boundary.  Parities are 0 = even, 1 = odd.
 
 On CUDA tensors ``dslash_half`` runs the hand-written even-odd kernel
 (:mod:`repro_torch.kernels.dslash`); on CPU tensors, the plain version
-below.
+below.  On CUDA tensors ``schur_matvec`` and ``schur_matvec_dagger`` are
+each two launches of that kernel, which folds the rounding, gamma5 and
+the Schur axpy into its loads and stores; on CPU tensors they are the
+composition ``schur_composed``, which the kernel matches bit for bit.
 """
 from __future__ import annotations
 
@@ -36,7 +39,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from repro_torch.kernels.dslash.ops import dslash_half_op
+from repro_torch.kernels.dslash.ops import dslash_half_op, schur_op
 from repro_torch.lqcd.dirac import EYE4, GAMMA, gamma5, mv, mv_dag, spin
 
 PROJ_M = torch.stack([EYE4 - GAMMA[mu] for mu in range(4)])  # (1 - gamma_mu)
@@ -151,18 +154,57 @@ def dslash_half(U_out: torch.Tensor, U_src: torch.Tensor, psi: torch.Tensor,
     return out
 
 
-def schur_matvec(U_e: torch.Tensor, U_o: torch.Tensor, psi_e: torch.Tensor,
-                 kappa: float) -> torch.Tensor:
-    """A psi_e = (1 - kappa^2 D_eo D_oe) psi_e on the even half-lattice."""
-    d_oe = dslash_half(U_o, U_e, psi_e, src_parity=0)   # even -> odd
+def _round_complex(v: torch.Tensor, dtype) -> torch.Tensor:
+    """Round a complex field through a reduced-precision real dtype.
+
+    torch has no complex bfloat16, so reduced precision is emulated by
+    rounding the re/im planes through ``dtype`` (round to nearest even) —
+    the storage/traffic model of CL2QCD's low-precision inner solver —
+    while arithmetic stays f32."""
+    if dtype is None:
+        return v
+    if dtype.is_complex:
+        return v.to(dtype)
+    return torch.view_as_complex(torch.view_as_real(v).to(dtype).float())
+
+
+def schur_composed(U_e: torch.Tensor, U_o: torch.Tensor, psi_e: torch.Tensor,
+                   kappa: float, *, dagger: bool = False,
+                   inner_dtype=None) -> torch.Tensor:
+    """``schur_matvec`` (``dagger`` False) or ``schur_matvec_dagger`` as
+    the composition of two ``dslash_half`` hops, the roundings through
+    ``inner_dtype``, gamma5 and the axpy: the path on the CPU, and on the
+    card (plain hops) the yardstick of the fused kernel."""
+    p = gamma5(psi_e) if dagger else _round_complex(psi_e, inner_dtype)
+    d_oe = dslash_half(U_o, U_e, p, src_parity=0)       # even -> odd
     d_eo = dslash_half(U_e, U_o, d_oe, src_parity=1)    # odd -> even
-    return psi_e - (kappa * kappa) * d_eo
+    out = p - (kappa * kappa) * d_eo
+    return _round_complex(gamma5(out) if dagger else out, inner_dtype)
+
+
+def schur_matvec(U_e: torch.Tensor, U_o: torch.Tensor, psi_e: torch.Tensor,
+                 kappa: float, inner_dtype=None) -> torch.Tensor:
+    """A psi_e = (1 - kappa^2 D_eo D_oe) psi_e on the even half-lattice.
+
+    With ``inner_dtype``, psi_e and the result are rounded through it: the
+    first half of the inner CG's normal operator."""
+    if psi_e.device.type != "cpu":
+        return schur_op(U_e, U_o, psi_e, kappa, inner_dtype=inner_dtype)
+    return schur_composed(U_e, U_o, psi_e, kappa, inner_dtype=inner_dtype)
 
 
 def schur_matvec_dagger(U_e: torch.Tensor, U_o: torch.Tensor,
-                        psi_e: torch.Tensor, kappa: float) -> torch.Tensor:
-    """A^dagger via gamma5-hermiticity: A^dagger = gamma5 A gamma5."""
-    return gamma5(schur_matvec(U_e, U_o, gamma5(psi_e), kappa))
+                        psi_e: torch.Tensor, kappa: float,
+                        inner_dtype=None) -> torch.Tensor:
+    """A^dagger via gamma5-hermiticity: A^dagger = gamma5 A gamma5.
+
+    With ``inner_dtype``, the result is rounded through it (psi_e is not:
+    in the inner CG it is ``schur_matvec``'s rounded output)."""
+    if psi_e.device.type != "cpu":
+        return schur_op(U_e, U_o, psi_e, kappa, dagger=True,
+                        inner_dtype=inner_dtype)
+    return schur_composed(U_e, U_o, psi_e, kappa, dagger=True,
+                          inner_dtype=inner_dtype)
 
 
 def eo_rhs(U_e: torch.Tensor, U_o: torch.Tensor, b_e: torch.Tensor,

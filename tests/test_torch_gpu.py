@@ -116,6 +116,64 @@ def test_solve_on_the_card_matches_the_cpu(cuda, preset):
                                convert.to_numpy(want.x), rtol=0, atol=2e-4)
 
 
+# -- the fused Schur operator: B1 with a load transform and an epilogue ---
+
+INNER = [None, torch.bfloat16, torch.float16, torch.float64, torch.float32,
+         torch.complex64]
+
+
+@pytest.mark.parametrize("dagger", [False, True])
+@pytest.mark.parametrize("inner", INNER, ids=str)
+@pytest.mark.parametrize("lattice", [(32, 32, 32, 8), (8, 6, 4, 6)],
+                         ids=str)
+def test_fused_schur_equals_the_plain_kernel_composition(cuda, lattice,
+                                                        inner, dagger):
+    """Two fused B1 launches against two plain ones and the torch passes
+    (rounding, gamma5, the axpy) they replace, bit for bit."""
+    U, psi = _fields(lattice, cuda)
+    U_e, U_o = (TC._round_complex(h, inner) for h in TE.pack_gauge(U))
+    v = TE.eo_pack(psi, 0) * 3.0
+    before = dict(K.LAUNCHES)
+    want = TE.schur_composed(U_e, U_o, v, 0.23, dagger=dagger,
+                             inner_dtype=inner)
+    assert K.LAUNCHES["dslash_eo_split"] == before["dslash_eo_split"] + 2
+    assert K.LAUNCHES["dslash_eo_fused"] == before["dslash_eo_fused"]
+    fn = TE.schur_matvec_dagger if dagger else TE.schur_matvec
+    got = fn(U_e, U_o, v, 0.23, inner)
+    assert K.LAUNCHES["dslash_eo_split"] == before["dslash_eo_split"] + 4
+    assert K.LAUNCHES["dslash_eo_fused"] == before["dslash_eo_fused"] + 2
+    assert torch.equal(got, want)
+
+
+def test_fused_solve_equals_the_unfused_solve(cuda, monkeypatch):
+    """EO_MIXED at 32^3 x 8: the solve through the fused Schur operator
+    and the solve through the plain hops and torch passes it replaced
+    take the same iterations to the same answer."""
+    U, b = _fields((32, 32, 32, 8), cuda, seed=3)
+    before = dict(K.LAUNCHES)
+    got = TC.solve_dirac(U, b, 0.137, TL.EO_MIXED_SOLVER)
+    fused = K.LAUNCHES["dslash_eo_fused"] - before["dslash_eo_fused"]
+    hops = K.LAUNCHES["dslash_eo_split"] - before["dslash_eo_split"]
+    assert got.converged and got.rel_residual <= 1e-6
+    assert fused == 4 * got.iters + 4 * got.outer_iters
+    assert hops == 4 * got.iters + 4 * got.outer_iters + 2
+
+    def composed(dagger):
+        def fn(U_e, U_o, v, kappa, inner_dtype=None):
+            return TE.schur_composed(U_e, U_o, v, kappa, dagger=dagger,
+                                     inner_dtype=inner_dtype)
+        return fn
+
+    monkeypatch.setattr(TC, "schur_matvec", composed(False))
+    monkeypatch.setattr(TC, "schur_matvec_dagger", composed(True))
+    before = dict(K.LAUNCHES)
+    want = TC.solve_dirac(U, b, 0.137, TL.EO_MIXED_SOLVER)
+    assert K.LAUNCHES["dslash_eo_fused"] == before["dslash_eo_fused"]
+    assert (want.iters, want.outer_iters) == (got.iters, got.outer_iters)
+    assert torch.equal(got.x, want.x)
+    assert got.rel_residual == want.rel_residual
+
+
 # -- the T-sharded path: several shards on the card -----------------------
 
 
